@@ -1,0 +1,111 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under `csrc/` is compiled with `nvcc` for Hopper (`sm_90a`) into
+a shared library with a plain C interface and loaded with `ctypes`. The
+build goes into `build/gsjax_torch/` at the repository root at first use;
+the library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and a stale library is never loaded. Nothing is compiled
+when this module is imported: the CPU tests import every module, and the CPU
+machine has no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parent / "build" / "gsjax_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# kernel name -> (source under the package, C symbol, argtypes)
+KERNELS = {
+    "blend_fwd": ("csrc/blend_fwd.cu", "gsjax_blend_fwd", [
+        _P, _P, _P, _P, _P,            # feats, tile_start, tile_count, bg, out
+        _I, _I, _I, _I, _I,            # width, height, tiles_x, tiles_y, tile
+        _F, _F,                        # fx, fy
+        _I, _I,                        # max_per_tile, require_depth
+        _F, _F, _F, _F, _F,            # alpha_clamp, alpha_min, t_min,
+                                       # sample_range, min_transmittance
+        _P,                            # cudaStream_t
+    ]),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit (set CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    src = _PKG / KERNELS[name][0]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one kernel unless its library exists; returns
+    (Popen, tmp path, final path, log path) or None."""
+    so = library_path(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    log = so.with_suffix(".log")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / KERNELS[name][0])]
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+    return proc, tmp, so, log
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every kernel whose library is missing, one nvcc per source,
+    all started together. Returns {name: compiler log} for what was built;
+    raises if any build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    jobs = {n: j for n in names if (j := _start(n)) is not None}
+    logs, failed = {}, []
+    for n, (proc, tmp, so, log) in jobs.items():
+        rc = proc.wait()
+        logs[n] = log.read_text()
+        if rc != 0:
+            failed.append(f"{n} (nvcc exit {rc}):\n{logs[n]}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, so)    # atomic: a reader never sees a partial file
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, KERNELS[name][1])
+            fn.argtypes = KERNELS[name][2]
+            fn.restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,264 @@
+"""Tile blend in plain PyTorch: the twin of the CUDA kernel `csrc/blend_fwd.cu`.
+
+Port of `gsjax/ops/raster/render_ref.py` with the same semantics
+(render_forward.cu:391-671):
+  - skip a pair if power > 0 or alpha < 1/255, alpha = min(0.99, op exp(power));
+  - stop (freeze T) before the pair that would take T below 1e-4;
+  - colour = accum + T_final bg, alpha = 1 - T_final, normal = accum_normal /
+    (1 - T_final) where some gaussian contributed;
+  - median depth: init at the last pair applied while T > 0.5, then the
+    SPLIT=8-way bisection (5 rounds) of the half-gaussian-CDF transmittance
+    model T(t) = 0.5, returned as z-depth via the ray->z factor rln.
+
+As in gsjax, the sequential transmittance recurrence is a cumulative sum of
+log(1 - alpha) over a [chunk] slice of a tile's list, for tiles processed in
+count-sorted batches. This is the CPU path of `render` and, on the card, the
+oracle the kernel is held against.
+
+Both paths return the same per-pixel planes, [16, H, W] float32:
+  0-2 colour, 3-5 normal, 6 alpha, 7 median z-depth, 8 n_contrib,
+  9 md_init, 10 T_final, 11 in_range, 12 dlogT/dt at the median, 13-15 zero
+(the rows of gsjax's Pallas forward, render_pallas.py:32-36; 9-12 are what
+a backward pass reads). The twin evaluates row 12 at its bisection root.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from gsjax_torch.ops.raster.binning import Binning
+from gsjax_torch.ops.raster.config import RasterConfig
+from gsjax_torch.ops.raster.preprocess import Preprocessed
+
+# payload layout: mean2d(2) conic(3) opacity(1) color(3) ray_plane(4) normal(3)
+_F = 16
+N_PLANES = 16
+
+
+def pack_features(prep: Preprocessed) -> torch.Tensor:
+    """[N, 16] per-gaussian blend payload (gsjax `_pack_features`)."""
+    return torch.cat([prep.mean2d, prep.conic, prep.opacity[:, None],
+                      prep.color, prep.ray_plane, prep.normal], dim=-1)
+
+
+def prepare_pairs(prep: Preprocessed, binning: Binning) -> torch.Tensor:
+    """[K, 16] contiguous payload of every live pair, in binning order."""
+    return pack_features(prep)[binning.gauss_idx].contiguous()
+
+
+def _tile_pixels(tile_ids, tiles_x, cfg: RasterConfig):
+    """[B] tile ids -> pixel centre coordinates px, py [B, P]."""
+    t = cfg.tile
+    lin = torch.arange(t * t, device=tile_ids.device)
+    px = (tile_ids[:, None] % tiles_x) * t + lin % t
+    py = (tile_ids[:, None] // tiles_x) * t + lin // t
+    return px.to(torch.float32), py.to(torch.float32)
+
+
+def _gather_chunk(feats_pad, starts, limit, base, chunk):
+    """Rows [base, base+chunk) of each tile's list -> ([B,C,16], rel [C],
+    in-list mask [B,C]); slots past `limit` read the zero pad row."""
+    rel = base + torch.arange(chunk, device=starts.device)
+    valid = rel[None, :] < limit[:, None]
+    idx = torch.where(valid, starts[:, None].to(torch.int64) + rel[None, :],
+                      feats_pad.shape[0] - 1)
+    return feats_pad[idx], rel, valid
+
+
+def _alpha_terms(f, px, py, cfg: RasterConfig, entry_valid):
+    """f [B,C,16]; px, py [B,P] -> alpha (0 where skipped), passes, dx, dy [B,C,P]."""
+    dx = f[..., 0:1] - px[:, None, :]
+    dy = f[..., 1:2] - py[:, None, :]
+    ca, cb, cc, op = f[..., 2:3], f[..., 3:4], f[..., 4:5], f[..., 5:6]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    alpha = torch.clamp_max(op * torch.exp(torch.clamp_max(power, 0.0)), cfg.alpha_clamp)
+    passes = (power <= 0.0) & (alpha >= cfg.alpha_min) & entry_valid[..., None]
+    return torch.where(passes, alpha, torch.zeros_like(alpha)), passes, dx, dy
+
+
+def _chunk_blend(carry, f, rel, valid, px, py, cfg: RasterConfig):
+    """Blend one [chunk] slice of each tile's list into the per-pixel carry
+    (the sequential loop as a cumulative log-transmittance). `done` carries
+    the stop across chunks: a pixel whose march stopped stays stopped, as in
+    the CUDA loop (render_forward.cu:498-501). gsjax's chunked paths carry
+    only the kept transmittance, so there a stopped pixel resumes at the
+    next chunk; the two agree whenever a tile's list fits one chunk."""
+    log_t, c_acc, n_acc, last_idx, md_init, done = carry
+    a, passes, dx, dy = _alpha_terms(f, px, py, cfg, valid)
+    log1m = torch.log1p(-a)
+    l_incl = log_t[:, None, :] + torch.cumsum(log1m, dim=1)
+    keep = (l_incl >= math.log(cfg.transmittance_min)) & ~done[:, None, :]
+    l_prev = l_incl - log1m
+    w = a * torch.exp(l_prev) * keep
+    c_acc = c_acc + (w[..., None] * f[:, :, None, 6:9]).sum(1)
+    n_acc = n_acc + (w[..., None] * f[:, :, None, 13:16]).sum(1)
+    # median-depth init: last applied gaussian whose preceding T > 0.5
+    t_val = f[..., 9:10] * dx + f[..., 10:11] * dy + f[..., 11:12]
+    applied = passes & keep
+    cond = applied & (torch.exp(l_prev) > 0.5)
+    k_ids = torch.arange(f.shape[1], device=f.device)[None, :, None]
+    best = torch.where(cond, k_ids, -1).amax(dim=1)                # [B,P]
+    md_chunk = torch.gather(t_val, 1, best.clamp_min(0)[:, None, :])[:, 0]
+    md_init = torch.where(best >= 0, md_chunk, md_init)
+    last_idx = torch.maximum(
+        last_idx, torch.where(applied, rel[None, :, None], -1).amax(dim=1))
+    log_t = log_t + (log1m * keep).sum(1)
+    done = done | (passes & ~keep).any(dim=1)
+    return log_t, c_acc, n_acc, last_idx, md_init, done
+
+
+def _log_t_model(feats_pad, starts, n_contrib, px, py, ts, cfg: RasterConfig,
+                 want_d=False):
+    """log T(ts) of the half-gaussian-CDF model (render_forward.cu:610-620)
+    over each pixel's applied pairs, at depths ts [B,P,S]; with `want_d`
+    also d(log T)/dt. Returns two [B,P,S] tensors (the second None without
+    want_d)."""
+    limit = n_contrib.amax(dim=1)
+    log_tp = torch.zeros_like(ts)
+    d_tp = torch.zeros_like(ts) if want_d else None
+    chunk = cfg.chunk
+    for base in range(0, int(limit.max()), chunk):
+        f, rel, valid = _gather_chunk(feats_pad, starts, limit, base, chunk)
+        a, passes, dx, dy = _alpha_terms(f, px, py, cfg, valid)
+        applied = passes & (rel[None, :, None] < n_contrib[:, None, :])
+        a = torch.where(applied, a, torch.zeros_like(a))[..., None]  # [B,C,P,1]
+        t_peak = (f[..., 9:10] * dx + f[..., 10:11] * dy + f[..., 11:12])[..., None]
+        rsig = f[..., 12:13, None]                                  # [B,C,1,1]
+        tss = ts[:, None]                                           # [B,1,P,S]
+        delta = (tss - t_peak) * rsig
+        hg = torch.where(rsig > 0, torch.exp(-0.5 * delta * delta), torch.zeros_like(delta))
+        one_minus = torch.clamp_min(1.0 - a * hg, 1e-12)
+        behind = tss > t_peak
+        lf = torch.where(behind, torch.log1p(-a) - 0.5 * torch.log(one_minus),
+                         0.5 * torch.log(one_minus))
+        mask = applied[..., None]
+        log_tp = log_tp + (lf * mask).sum(1)
+        if want_d:
+            sgn = torch.where(behind, 1.0, -1.0)
+            dlf = sgn * 0.5 * (a / one_minus) * (-hg * delta * rsig)
+            d_tp = d_tp + (dlf * mask).sum(1)
+    return log_tp, d_tp
+
+
+def bisect_batch(feats_pad, starts, n_contrib, md_init, t_final, px, py,
+                 cfg: RasterConfig):
+    """SPLIT-way bisection of T(t*) = 0.5 (render_forward.cu:535-645).
+    Returns (median ray distance [B,P], in_range [B,P] bool)."""
+    s_pts = cfg.split + 1
+    in_range = t_final <= cfg.min_transmittance
+    d_min = torch.clamp_min(md_init - cfg.sample_range, 0.0)
+    d_max = torch.clamp_min(md_init + cfg.sample_range, 0.0)
+    steps = torch.arange(s_pts, device=md_init.device, dtype=torch.float32)
+    t0 = t1 = None
+    for it in range(cfg.split_iterations):
+        interval = (d_max - d_min) / cfg.split
+        ts = d_min[..., None] + interval[..., None] * steps
+        log_tp, _ = _log_t_model(feats_pad, starts, n_contrib, px, py, ts, cfg)
+        tp = torch.exp(log_tp)
+        if it == 0:
+            in_range = in_range & (tp[..., 0] >= 0.5) & (tp[..., cfg.split] <= 0.5)
+        # last s in [1, SPLIT-1] with T >= 0.5, else 0 (render_forward.cu:627-631)
+        sid = torch.zeros_like(n_contrib)
+        for s in range(1, cfg.split):
+            sid = torch.where(tp[..., s] >= 0.5, s, sid)
+        d_max = d_min + (sid + 1).to(torch.float32) * interval
+        d_min = d_min + sid.to(torch.float32) * interval
+        t0 = torch.gather(tp, -1, sid[..., None].to(torch.int64))[..., 0]
+        t1 = torch.gather(tp, -1, (sid + 1)[..., None].to(torch.int64))[..., 0]
+    denom = t0 - t1
+    w_max = torch.clamp((t0 - 0.5) / torch.where(denom.abs() > 1e-20, denom,
+                                                 torch.full_like(denom, 1e-20)), 0.0, 1.0)
+    m_depth = torch.where(in_range, w_max * d_max + (1.0 - w_max) * d_min,
+                          torch.zeros_like(d_min))
+    return m_depth, in_range
+
+
+def blend_tiles_batch(feats_pad, tile_ids, starts, counts, tiles_x,
+                      cfg: RasterConfig, bg, width, height, fx, fy):
+    """Blend a batch of tiles; counts are already clamped at max_per_tile.
+    Returns [B, 16, P] planes (module docstring for the rows)."""
+    b, p = tile_ids.shape[0], cfg.pixels_per_tile
+    dev = feats_pad.device
+    px, py = _tile_pixels(tile_ids, tiles_x, cfg)
+    carry = (torch.zeros(b, p, device=dev), torch.zeros(b, p, 3, device=dev),
+             torch.zeros(b, p, 3, device=dev),
+             torch.full((b, p), -1, dtype=torch.int64, device=dev),
+             torch.zeros(b, p, device=dev),
+             torch.zeros(b, p, dtype=torch.bool, device=dev))
+    for base in range(0, int(counts.max()) if b else 0, cfg.chunk):
+        f, rel, valid = _gather_chunk(feats_pad, starts, counts, base, cfg.chunk)
+        carry = _chunk_blend(carry, f, rel, valid, px, py, cfg)
+    log_t, c_acc, n_acc, last_idx, md_init, _ = carry
+    t_final = torch.exp(log_t)
+    has = (last_idx >= 0)[..., None]
+    normal = torch.where(
+        has, n_acc / torch.clamp_min(1.0 - t_final, 1e-12)[..., None],
+        torch.zeros_like(n_acc))
+    n_contrib = last_idx + 1
+    out = torch.zeros(b, N_PLANES, p, device=dev)
+    out[:, 0:3] = (c_acc + t_final[..., None] * bg).transpose(1, 2)
+    out[:, 3:6] = normal.transpose(1, 2)
+    out[:, 6] = 1.0 - t_final
+    out[:, 8] = n_contrib.to(torch.float32)
+    out[:, 9] = md_init
+    out[:, 10] = t_final
+    if cfg.require_depth:
+        m_depth, in_range = bisect_batch(feats_pad, starts, n_contrib, md_init,
+                                         t_final, px, py, cfg)
+        # dlogT/dt at the root, the backward's implicit-function denominator
+        _, d_denom = _log_t_model(feats_pad, starts, n_contrib, px, py,
+                                  m_depth[..., None], cfg, want_d=True)
+        pnx = (px - (width - 1) / 2.0) / fx
+        pny = (py - (height - 1) / 2.0) / fy
+        rln = torch.rsqrt(pnx * pnx + pny * pny + 1.0)
+        out[:, 7] = m_depth * rln
+        out[:, 11] = in_range.to(torch.float32)
+        out[:, 12] = torch.where(in_range, d_denom[..., 0], torch.zeros_like(m_depth))
+    return out
+
+
+def blend_planes(feats_pairs, tile_start, tile_count, width, height, fx, fy,
+                 bg, cfg: RasterConfig) -> torch.Tensor:
+    """Blend every tile of a frame -> [16, H, W] planes.
+
+    feats_pairs [K,16] (prepare_pairs), tile_start/tile_count [T] int32,
+    bg [3] float32 on the same device."""
+    tiles_x, tiles_y = cfg.grid(width, height)
+    n_tiles = tiles_x * tiles_y
+    dev = feats_pairs.device
+    feats_pad = torch.cat([feats_pairs, feats_pairs.new_zeros(1, _F)])
+    counts = torch.clamp_max(tile_count.to(torch.int64), cfg.max_per_tile)
+    # heavy tiles first so each batch is roughly homogeneous in count
+    order = torch.argsort(-counts, stable=True)
+    tiles = torch.empty(n_tiles, N_PLANES, cfg.pixels_per_tile, device=dev)
+    for i in range(0, n_tiles, cfg.tile_batch):
+        ids = order[i:i + cfg.tile_batch]
+        tiles[ids] = blend_tiles_batch(
+            feats_pad, ids, tile_start[ids].to(torch.int64), counts[ids],
+            tiles_x, cfg, bg, width, height, fx, fy)
+    t = cfg.tile
+    img = tiles.reshape(tiles_y, tiles_x, N_PLANES, t, t)
+    img = img.permute(2, 0, 3, 1, 4).reshape(N_PLANES, tiles_y * t, tiles_x * t)
+    return img[:, :height, :width].contiguous()
+
+
+def planes_to_images(planes: torch.Tensor) -> dict:
+    """[16, H, W] planes -> the image dict of `render` ([H, W(, C)])."""
+    return {
+        "color": planes[0:3].permute(1, 2, 0),
+        "normal": planes[3:6].permute(1, 2, 0),
+        "alpha": planes[6],
+        "median_depth": planes[7],
+        "n_contrib": planes[8].to(torch.int32),
+    }
+
+
+def render_tiles(prep: Preprocessed, binning: Binning, camera,
+                 cfg: RasterConfig, bg: torch.Tensor) -> dict:
+    """Blend all tiles with the twin. Returns the dict of [H, W(, C)] images."""
+    planes = blend_planes(prepare_pairs(prep, binning), binning.tile_start,
+                          binning.tile_count, camera.width, camera.height,
+                          camera.fx, camera.fy, bg, cfg)
+    return planes_to_images(planes)
