@@ -1,22 +1,35 @@
-"""Drive gsjax_torch's serving path on one CUDA card and check its kernels.
+"""Drive gsjax_torch's serving and training paths on one CUDA card and check
+its kernels.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure exits non-zero):
-  device  the card's name and power limit (nvidia-smi);
-  build   compile every hand-written kernel from `gsjax_torch/csrc/` with nvcc;
-  parity  `render()` with backend "cuda" (the blend kernel) against backend
-          "torch" (its plain-PyTorch twin), and the kernel's other output
-          rows against the twin's on the same pair lists, at 640x360 / 20k
-          gaussians and at 1920x1080 / 100k;
-  slice   the render CLI (`gsjax_torch.render.main`) on a 4-view 1920x1080
-          COLMAP scene and a 100k-gaussian PLY made from a seed; the kernel's
-          launch count must equal the number of views;
-  timing  CUDA-event times of preprocess, binning, the kernel and a whole
-          `render()` at 1920x1080 / 100k, with the kernel's bound.
+  device      the card's name and power limit (nvidia-smi);
+  build       compile every hand-written kernel from `gsjax_torch/csrc/`
+              with nvcc, one process per source, all started together;
+  parity      `render()` with backend "cuda" (kernel B1) against backend
+              "torch" (its plain-PyTorch twin), and B1's other output rows
+              against the twin's on the same pair lists, at 640x360 / 20k
+              gaussians and at 1920x1080 / 100k;
+  parity_bwd  kernel B2 against its twin `render_ref.blend_bwd_planes` on the
+              same B1 planes and seeded cotangent, per pair and per gaussian,
+              at both sizes, with and without the median depth;
+  slice       the render CLI (`gsjax_torch.render.main`) on a 4-view
+              1920x1080 COLMAP scene and a 100k-gaussian PLY made from a
+              seed; B1's launches must equal the number of views;
+  train       the training CLI (`gsjax_torch.train.main`) for 40 steps on a
+              6-view 1920x1080 scene initialised from 100k points, densify
+              at 20 and 30, depth-normal regularisation from 21; B2's
+              launches must equal the steps;
+  timing      CUDA-event times of preprocess, binning, B1 and a whole
+              `render()` at 1920x1080 / 100k, with B1's bound;
+  timing_train  B2 with and without depth and its bound, bench.py's
+              fwd+bwd loss as rays/s, a train step with regularisation on and
+              off with its stage split and peak memory, and a profiler
+              reading of the device's busy share.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
-result. Run from the repository root; the scene is written under
+result. Run from the repository root; scenes are written under
 `build/chip_smoke/` and removed at the end.
 """
 
@@ -81,6 +94,31 @@ MD_ATOL, MD_RTOL, MD_FRAC, MD_MAX = 2e-3, 1e-3, 0.9999, 5e-3
 NCONTRIB_FRAC = 0.9999
 DD_RTOL, DD_ATOL, DD_FRAC = 1e-2, 1e-3, 0.999
 
+# B2 against its twin on the same B1 planes and cotangent. Errors are taken
+# per payload column, relative to the column's largest |twin| entry (the
+# columns differ by orders of magnitude). The kernel sums each pair's
+# per-pixel terms with warp shuffles and atomicAdd in no fixed order and
+# carries T multiplicatively; the twin sums in log space and in another
+# order: BWD_TOL / BWD_FRAC bound the rounding. A pair whose alpha test or
+# stop flips between the two evaluation orders moves its pixel's terms as a
+# whole: BWD_MAX bounds every entry, GAUSS_* the per-gaussian sums after
+# the scatter. Read on the card (H100, 640x360 / 20k and 1080p / 100k, with
+# and without depth): every pair within 3.6e-5 and every gaussian within
+# 1.9e-5 (largest in the ray-plane columns); no flip seen. Limits: 1e-4 on
+# >= 99.99% of pairs and gaussians, every one within 1e-3.
+BWD_TOL, BWD_FRAC, BWD_MAX = 1e-4, 0.9999, 1e-3
+GAUSS_TOL, GAUSS_FRAC, GAUSS_MAX = 1e-4, 0.9999, 1e-3
+
+# fp32 operations B2 needs, per (pair, pixel) interaction, counted from
+# csrc/blend_bwd.cu as OPS_* above: the alpha test for every pair before
+# the pixel's n_contrib; for an applied pair the blend and chain terms (q,
+# w, the running sum, dL/dalpha, the chain to power/opacity and the 16
+# payload columns) and one add per column for the sum over pixels; for an
+# applied pair of an in-range pixel the median term; and a per-pixel setup.
+OPS_BWD_APPLY = 65
+OPS_BWD_MEDIAN = 38
+OPS_BWD_PIXEL = 40
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -91,9 +129,9 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def bench_gaussians(n, seed=0):
+def bench_gaussians(n, seed=0, rng=None):
     """bench.py's scene: n gaussians around z=5 (bench.py:59-66)."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed) if rng is None else rng
     means = rng.normal(0, 1.2, (n, 3)).astype(np.float32)
     means[:, 2] += 5.0
     scales = np.exp(rng.normal(-3.3, 0.3, (n, 3))).astype(np.float32)
@@ -102,6 +140,30 @@ def bench_gaussians(n, seed=0):
     opac = (1 / (1 + np.exp(-rng.normal(0.0, 1.0, (n, 1))))).astype(np.float32)
     shs = rng.normal(0, 0.3, (n, 16, 3)).astype(np.float32)
     return means, scales, quats, opac, shs
+
+
+def bench_gt(n, width, height):
+    """bench.py's target image: the next draw of its seeded stream (:73)."""
+    rng = np.random.default_rng(0)
+    bench_gaussians(n, rng=rng)
+    return rng.uniform(0, 1, (height, width, 3)).astype(np.float32)
+
+
+def bench_params(g, device):
+    """bench.py's gaussians as the port's model (raw parameters, all alive)."""
+    from gsjax_torch.model.gaussians import params_from_numpy
+
+    means, scales, quats, opac, shs = g
+    n = len(means)
+    params = dict(xyz=means, features_dc=shs[:, :1], features_rest=shs[:, 1:],
+                  opacity=np.log(opac / (1 - opac)), scaling=np.log(scales),
+                  rotation=quats, sg_axis=np.zeros((n, 1, 3), np.float32),
+                  sg_sharpness=np.zeros((n, 1), np.float32),
+                  sg_color=np.zeros((n, 1, 3), np.float32))
+    aux = dict(alive=np.ones(n, bool), filter_3d=np.zeros(n, np.float32),
+               grad_accum=np.zeros(n), grad_accum_abs=np.zeros(n),
+               denom=np.zeros(n), max_radii=np.zeros(n, np.int32))
+    return params_from_numpy(params, aux, device)
 
 
 def bench_camera(width, height, device):
@@ -241,6 +303,82 @@ def phase_parity(width, height, n, dev):
     return err, twin_ms
 
 
+def bench_cotangent(planes, gt, require_depth):
+    """The cotangent of the blend planes under bench.py's loss
+    (0.8 L1 + 0.2 (1 - SSIM) + 1e-6 mean median depth, bench.py:82-87)."""
+    import torch
+
+    from gsjax_torch.ops.raster import render_ref
+    from gsjax_torch.train import losses
+
+    planes = planes.detach().requires_grad_(True)
+    img = render_ref.planes_to_images(planes)
+    loss = 0.8 * losses.l1_loss(img["color"], gt) + \
+        0.2 * (1 - losses.ssim(img["color"], gt))
+    if require_depth:
+        loss = loss + 1e-6 * img["median_depth"].mean()
+    g, = torch.autograd.grad(loss, planes)
+    return g.contiguous()
+
+
+def phase_parity_bwd(width, height, n, dev, require_depth):
+    """B2 against its twin on the same B1 planes and a seeded cotangent;
+    returns (summary, twin_ms)."""
+    import torch
+
+    from gsjax_torch.ops.raster import RasterConfig, render_cuda, render_ref
+
+    cfg = RasterConfig(sh_degree=3, require_depth=require_depth, max_per_tile=1 << 12)
+    cam = bench_camera(width, height, dev)
+    _, _, binning, feats = stages(bench_gaussians(n), cam, cfg, dev)
+    bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+    lists = (feats, binning.tile_start, binning.tile_count)
+    planes = render_cuda.blend_fwd(*lists, width, height, cam.fx, cam.fy, bg, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    grad = torch.zeros_like(planes)
+    rows = 8 if require_depth else 7
+    grad[:rows] = torch.randn((rows, height, width), generator=gen, device=dev)
+    tail = (width, height, cam.fx, cam.fy, bg, cfg)
+    d_k = render_cuda.blend_bwd(*lists, planes, grad, *tail)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    d_t = render_ref.blend_bwd_planes(*lists, planes, grad, *tail)
+    b.record()
+    torch.cuda.synchronize()
+    twin_ms = a.elapsed_time(b)
+
+    def rel_err(k, t):
+        return ((k - t).abs() / t.abs().amax(0).clamp_min(1e-30)).amax(1)
+
+    err = rel_err(d_k, d_t)
+    gk = torch.zeros(n, 16, device=dev).index_add_(0, binning.gauss_idx, d_k)
+    gt = torch.zeros(n, 16, device=dev).index_add_(0, binning.gauss_idx, d_t)
+    gerr = rel_err(gk, gt)
+    touched = gt.abs().amax(1) > 0
+    col_err = ((d_k - d_t).abs() / d_t.abs().amax(0).clamp_min(1e-30)).amax(0)
+    out = {"pairs": binning.num_live, "twin_ms": twin_ms,
+           "pair_max_err": float(err.max()),
+           "pair_close_frac": float((err <= BWD_TOL).double().mean()),
+           "gauss_max_err": float(gerr[touched].max()),
+           "gauss_close_frac": float((gerr[touched] <= GAUSS_TOL).double().mean()),
+           "col_max_err": [float(x) for x in col_err],
+           "finite": bool(torch.isfinite(d_k).all()),
+           "nonzero_cols": int((d_t.abs().amax(0) > 0).sum())}
+    emit({"phase": "parity_bwd", "width": width, "height": height, "gaussians": n,
+          "require_depth": require_depth, **out})
+    check(out["finite"], "B2 output not finite")
+    check(out["nonzero_cols"] == (16 if require_depth else 12),
+          f"twin gradient has {out['nonzero_cols']} non-zero columns")
+    check(out["pair_close_frac"] >= BWD_FRAC, f"B2 pairs close on {out['pair_close_frac']}")
+    check(out["pair_max_err"] <= BWD_MAX, f"B2 pair max error {out['pair_max_err']}")
+    check(out["gauss_close_frac"] >= GAUSS_FRAC,
+          f"B2 gaussians close on {out['gauss_close_frac']}")
+    check(out["gauss_max_err"] <= GAUSS_MAX, f"B2 gaussian max error {out['gauss_max_err']}")
+    return out, twin_ms
+
+
 def bench_pose(i, n):
     """arc_pose around bench.py's scene centre (0, 0, 5)."""
     from gsjax_torch.data.synth import arc_pose
@@ -256,7 +394,6 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
     from gsjax_torch import render as render_cli
     from gsjax_torch.config import dump_cfg_args
     from gsjax_torch.data.synth import write_rendered_colmap
-    from gsjax_torch.model.gaussians import params_from_numpy
     from gsjax_torch.model.io import save_ply
     from gsjax_torch.ops.raster import render_cuda
 
@@ -264,18 +401,9 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
     scene_dir = os.path.join(WORK, "scene")
     model_dir = os.path.join(WORK, "model")
     g = bench_gaussians(n)
-    means, scales, quats, opac, shs = g
-    params = dict(xyz=means, features_dc=shs[:, :1], features_rest=shs[:, 1:],
-                  opacity=np.log(opac / (1 - opac)), scaling=np.log(scales),
-                  rotation=quats, sg_axis=np.zeros((n, 1, 3), np.float32),
-                  sg_sharpness=np.zeros((n, 1), np.float32),
-                  sg_color=np.zeros((n, 1, 3), np.float32))
-    aux = dict(alive=np.ones(n, bool), filter_3d=np.zeros(n, np.float32),
-               grad_accum=np.zeros(n), grad_accum_abs=np.zeros(n),
-               denom=np.zeros(n), max_radii=np.zeros(n, np.int32))
     t0 = time.perf_counter()
     save_ply(os.path.join(model_dir, "point_cloud", "iteration_30000",
-                          "point_cloud.ply"), *params_from_numpy(params, aux, dev))
+                          "point_cloud.ply"), *bench_params(g, dev))
     write_rendered_colmap(scene_dir, n_images=n_views, width=width, height=height,
                           gaussians=g, pose_fn=bench_pose, max_per_tile=1 << 12,
                           device=dev)
@@ -301,7 +429,7 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
             "max_tile_count": out["max_tile_count"],
         })
 
-    render_cuda.blend_fwd.launches = 0
+    render_cuda.blend_fwd.launches = render_cuda.blend_bwd.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     render_cli.main(["-m", model_dir, "--save_depth", "--device", str(dev)],
@@ -309,6 +437,7 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = render_cuda.blend_fwd.launches
+    bwd_launches = render_cuda.blend_bwd.launches
 
     out_dir = os.path.join(model_dir, "train", "ours_30000")
     files = {d: sorted(os.listdir(os.path.join(out_dir, d)))
@@ -321,12 +450,98 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
     check(all(v == want for v in files.values()), f"PNG tree {files}")
     check(len(stats) == n_views, "not every view rendered")
     check(launches == n_views, f"blend_fwd launched {launches} times for {n_views} views")
+    check(bwd_launches == 0, f"blend_bwd launched {bwd_launches} times while serving")
     for s in stats:
         check(s["finite"], f"view {s['view']} has non-finite output")
         check(s["shape"] == [height, width, 3], f"view {s['view']} shape {s['shape']}")
         check(s["alpha_mean"] > 0.05 and s["alpha_gt_half_frac"] > 0.01,
               f"view {s['view']} alpha coverage {s['alpha_mean']}")
         check(s["median_depth_valid_frac"] > 0.01, f"view {s['view']} has no median depth")
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches
+
+
+def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
+    """The training CLI at full width; returns {kernel: launches}.
+
+    The per-step loss moves with the view drawn (about 15% between the six
+    views), with the depth-normal term that enters at step 21 and with the
+    prune at each densify, so whether training lowers the loss is read on
+    fixed views: the photometric loss over all six training views, rendered
+    from the model at initialisation and after the last step."""
+    import torch
+
+    from gsjax_torch import train as train_cli
+    from gsjax_torch.data.readers import load_scene
+    from gsjax_torch.data.synth import write_rendered_colmap
+    from gsjax_torch.model.io import load_ply
+    from gsjax_torch.ops.raster import render_cuda
+    from gsjax_torch.train import losses
+    from gsjax_torch.train.loop import Trainer
+
+    def views_loss(trainer):
+        vals = []
+        for v in trainer.scene.train_views:
+            img = trainer.render_view(v, require_depth=False)["render"]
+            gt = trainer.gt_for(v)
+            vals.append(float(0.8 * losses.l1_loss(img, gt)
+                              + 0.2 * (1 - losses.ssim(img, gt))))
+        return float(np.mean(vals))
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    scene_dir = os.path.join(WORK, "train_scene")
+    model_dir = os.path.join(WORK, "train_model")
+    t0 = time.perf_counter()
+    write_rendered_colmap(scene_dir, n_images=n_views, width=width, height=height,
+                          gaussians=bench_gaussians(n), pose_fn=bench_pose,
+                          max_per_tile=1 << 12, points_stride=1, device=dev)
+    # the model the CLI starts from (Trainer.create is deterministic)
+    initial = Trainer.create(load_scene(scene_dir, device=dev), None, model_dir, dev)
+    loss_before = views_loss(initial)
+    del initial
+    setup_s = time.perf_counter() - t0
+    argv = ["-s", scene_dir, "-m", model_dir, "--iterations", str(steps),
+            "--densify_from_iter", "10", "--densification_interval", "10",
+            "--densify_until_iter", "31", "--regularization_from_iter", "21",
+            "--lambda_multi_view_ncc", "0", "--lambda_multi_view_geo", "0",
+            "--save_iterations", str(steps), "--checkpoint_iterations", str(steps),
+            "--test_iterations", str(steps), "--device", str(dev)]
+    log = []
+    render_cuda.blend_fwd.launches = render_cuda.blend_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(argv, on_step=lambda t, m: log.append(
+        {"loss": m["loss"], "dn_loss": m["dn_loss"], "attempts": m["attempts"],
+         "pairs": m["num_live_pairs"], "max_tile_count": m["max_tile_count"],
+         "alive": int(t.aux.alive.sum()), "densify": m.get("densify")}))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {"blend_fwd": render_cuda.blend_fwd.launches,
+                "blend_bwd": render_cuda.blend_bwd.launches}
+    ply = os.path.join(model_dir, "point_cloud", f"iteration_{steps}", "point_cloud.ply")
+    _, aux = load_ply(ply, device=dev)
+    step_losses = [r["loss"] for r in log]
+    first, last = float(np.mean(step_losses[:10])), float(np.mean(step_losses[-10:]))
+    loss_after = views_loss(trainer)
+    densified = [r["densify"] for r in log if r["densify"]]
+    emit({"phase": "train", "views": n_views, "width": width, "height": height,
+          "points": n, "steps": len(log), "setup_s": setup_s, "cli_s": cli_s,
+          "launches": launches, "attempts": sum(r["attempts"] for r in log),
+          "views_loss_before": loss_before, "views_loss_after": loss_after,
+          "step_loss_first10": first, "step_loss_last10": last,
+          "dn_loss_live_steps": sum(r["dn_loss"] > 0 for r in log),
+          "densify": densified,
+          "alive_final": int(trainer.aux.alive.sum()), "ply_alive": int(aux.alive.sum()),
+          "max_per_tile": trainer.max_per_tile, "per_step": log})
+    check(len(log) == steps, f"{len(log)} steps run")
+    check(launches["blend_bwd"] == steps,
+          f"blend_bwd launched {launches['blend_bwd']} times for {steps} steps")
+    check(launches["blend_fwd"] == sum(r["attempts"] for r in log),
+          f"blend_fwd launched {launches['blend_fwd']} times")
+    check(all(np.isfinite(x) for x in step_losses), "non-finite loss")
+    check(loss_after < loss_before, f"loss did not fall: {loss_before} -> {loss_after}")
+    check(len(densified) == 2, f"densify ran {len(densified)} times")
+    check(int(aux.alive.sum()) == int(trainer.aux.alive.sum()), "PLY does not load back")
     shutil.rmtree(WORK, ignore_errors=True)
     return launches
 
@@ -435,6 +650,166 @@ def phase_timing(dev, twin_ms, width=1920, height=1080, n=100_000):
     return kernel_ms, bound
 
 
+def bwd_bound_ms(planes, feats, binning, cfg, width, height):
+    """Least time the card needs for B2 on this frame: bytes (payload, tile
+    ranges and the 13 plane rows plus 8 cotangent rows B2 reads, once each;
+    d_payload written once) over HBM bandwidth against operations (OPS_BWD_*)
+    over the fp32 peak, for the interactions these inputs need."""
+    import torch
+
+    n_contrib = planes[8].to(torch.float64)
+    applied = applied_pairs(feats, binning, planes[8], cfg, width, height).to(torch.float64)
+    median = applied * (planes[11] > 0) if cfg.require_depth else torch.zeros_like(applied)
+    ops = float((n_contrib * OPS_ALPHA + applied * OPS_BWD_APPLY
+                 + median * OPS_BWD_MEDIAN).sum()) + OPS_BWD_PIXEL * width * height
+    counts = binning.tile_count.numel()
+    nbytes = (2 * binning.num_live * 16 * 4 + counts * 2 * 4 + 3 * 4
+              + (13 + 8) * width * height * 4)
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = ops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "interactions_before_n_contrib": float(n_contrib.sum()),
+            "interactions_applied": float(applied.sum()),
+            "interactions_median": float(median.sum())}
+
+
+def phase_timing_train(dev, width=1920, height=1080, n=100_000):
+    """B2, bench.py's fwd+bwd and train steps at 1080p / 100k; returns
+    (B2 ms, B2 bound)."""
+    import torch
+
+    from gsjax_torch.model import gaussians as gm
+    from gsjax_torch.ops.raster import RasterConfig, render, render_cuda
+    from gsjax_torch.ops.raster.binning import bin_gaussians
+    from gsjax_torch.ops.raster.preprocess import preprocess
+    from gsjax_torch.ops.raster.render_ref import prepare_pairs
+    from gsjax_torch.train import losses
+    from gsjax_torch.train.step import LossConfig, train_step
+
+    cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
+    cfg_nd = dataclasses.replace(cfg, require_depth=False)
+    cam = bench_camera(width, height, dev)
+    g = bench_gaussians(n)
+    gt = torch.as_tensor(bench_gt(n, width, height), device=dev)
+    args, prep, binning, feats = stages(g, cam, cfg, dev)
+    bg = torch.zeros(3, device=dev)
+    lists = (feats, binning.tile_start, binning.tile_count)
+    tail = (width, height, cam.fx, cam.fy, bg)
+    out = {}
+    b2 = {}
+    for name, c in (("depth", cfg), ("no_depth", cfg_nd)):
+        planes = render_cuda.blend_fwd(*lists, *tail, c)
+        grad = bench_cotangent(planes, gt, c.require_depth)
+        b2[name] = (planes, grad)
+        out[f"b1_{name}_ms"] = event_ms(lambda: render_cuda.blend_fwd(*lists, *tail, c))
+        out[f"b2_{name}_ms"] = event_ms(
+            lambda: render_cuda.blend_bwd(*lists, planes, grad, *tail, c))
+    bound = bwd_bound_ms(b2["depth"][0], feats, binning, cfg, width, height)
+
+    # bench.py's step: render + 0.8 L1 + 0.2 (1 - SSIM) + 1e-6 mean depth, fwd+bwd
+    leaves = [a.clone().requires_grad_(True) for a in args]
+
+    def fwd_bwd():
+        o = render(*leaves, cam, cfg, bg)
+        loss = 0.8 * losses.l1_loss(o["render"], gt) + \
+            0.2 * (1 - losses.ssim(o["render"], gt)) + 1e-6 * o["median_depth"].mean()
+        return torch.autograd.grad(loss, leaves)
+
+    out["fwd_bwd_ms"] = event_ms(fwd_bwd, reps=5)
+    out["raster_fwd_bwd_rays_per_s_1080p"] = width * height / (out["fwd_bwd_ms"] * 1e-3)
+
+    # stages of one step, timed apart (reg on)
+    prep_in = [a.clone().requires_grad_(True) for a in args]
+    out["preprocess_fwd_ms"] = event_ms(
+        lambda: preprocess(*prep_in, None, None, None, cam, cfg))
+    out["binning_ms"] = event_ms(lambda: bin_gaussians(prep, cfg, width, height))
+    img = render(*args, cam, cfg, bg)["render"].detach().requires_grad_(True)
+
+    def loss_fwd_bwd():
+        loss = 0.8 * losses.l1_loss(img, gt) + 0.2 * (1 - losses.ssim(img, gt))
+        return torch.autograd.grad(loss, img)
+
+    out["l1_ssim_fwd_bwd_ms"] = event_ms(loss_fwd_bwd)
+    d_feats = render_cuda.blend_bwd(*lists, *b2["depth"], *tail, cfg)
+
+    def prep_bwd():
+        p = preprocess(*prep_in, None, None, None, cam, cfg)
+        f = prepare_pairs(p, binning)
+        return torch.autograd.grad(f, prep_in, d_feats, allow_unused=True)
+
+    out["preprocess_fwd_bwd_ms"] = event_ms(prep_bwd)
+
+    # whole train steps (train_step ends in a host read of the loss)
+    params, aux = bench_params(g, dev)
+    adam = gm.adam_init(params)
+    lrs = dict(xyz=1.6e-4, features_dc=0.0025, features_rest=0.0001, opacity=0.05,
+               scaling=0.005, rotation=0.001, sg_axis=0.002, sg_sharpness=0.095,
+               sg_color=0.00064)
+    grads = {k: torch.zeros_like(getattr(params, k)) for k in gm.PARAM_FIELDS}
+    out["adam_ms"] = event_ms(lambda: gm.adam_update(params, grads, adam, lrs))
+    for name, reg_on in (("reg_on", True), ("reg_off", False)):
+        c = cfg if reg_on else cfg_nd
+        step = lambda: train_step(params, aux, adam, cam, gt, bg, lrs, c,
+                                  LossConfig(reg_on=reg_on))
+        out[f"train_step_{name}_ms"] = event_ms(step, reps=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        out[f"train_step_{name}_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    train_step(params, aux, adam, cam, gt, bg, lrs, cfg, LossConfig(reg_on=True))
+    torch.cuda.synchronize()
+    out["train_step_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["profile"] = profile_step(lambda: train_step(params, aux, adam, cam, gt, bg, lrs,
+                                                     cfg, LossConfig(reg_on=True)))
+    emit({"phase": "timing_train", "width": width, "height": height, "gaussians": n,
+          "pairs": binning.num_live, **out, "b2_bound": bound})
+    return out["b2_depth_ms"], bound
+
+
+def profile_step(step):
+    """torch.profiler over one step: the device's busy time (the union of its
+    kernels' intervals), the step's span on the host clock, the idle share,
+    and the ten kernels with the most device time. Returns "not measured"
+    with the reason where the profiler records no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not kernels:
+            return {"status": "not measured", "error": "no kernel in the trace"}
+        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+        busy, cur_s, cur_e = 0.0, *spans[0]
+        for s0, e0 in spans[1:]:
+            if s0 > cur_e:
+                busy, cur_s, cur_e = busy + cur_e - cur_s, s0, e0
+            else:
+                cur_e = max(cur_e, e0)
+        busy_ms = (busy + cur_e - cur_s) / 1e3
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": len(kernels),
+                "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+                "top": [{"name": k[:80], "ms": ms} for k, ms in top]}
+    except Exception as e:        # a measurement, not a kernel: report, go on
+        return {"status": "not measured", "error": f"{type(e).__name__}: {e}"[:300]}
+
+
 def main():
     import torch
 
@@ -455,15 +830,31 @@ def main():
     phase_build()
     phase_parity(640, 360, 20_000, dev)
     full_err, twin_ms = phase_parity(1920, 1080, 100_000, dev)
-    launches = phase_slice(dev)
+    bwd_err = {}
+    for rd in (True, False):
+        phase_parity_bwd(640, 360, 20_000, dev, rd)
+        bwd_err[rd], bwd_twin = phase_parity_bwd(1920, 1080, 100_000, dev, rd)
+        if rd:
+            bwd_twin_ms = bwd_twin
+    serve_launches = phase_slice(dev)
+    train_launches = phase_train(dev)
     kernel_ms, bound = phase_timing(dev, twin_ms)
-    emit({"kernels": [{
-        "name": "blend_fwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_fwd.cu",
-        "replaces": "gsjax/ops/raster/render_pallas.py:644",
-        "launches": launches,
-        "max_abs_err": max(full_err["color_max_abs_err"], full_err["alpha_max_abs_err"]),
-        "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": bound["bound_ms"],
-        "bound_by": bound["bound_by"], "library_ms": None}]})
+    b2_ms, b2_bound = phase_timing_train(dev)
+    emit({"kernels": [
+        {"name": "blend_fwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_fwd.cu",
+         "replaces": "gsjax/ops/raster/render_pallas.py:644",
+         "launches": train_launches["blend_fwd"],
+         "launches_by_path": {"render": serve_launches, "train": train_launches["blend_fwd"]},
+         "max_abs_err": max(full_err["color_max_abs_err"], full_err["alpha_max_abs_err"]),
+         "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": bound["bound_ms"],
+         "bound_by": bound["bound_by"], "library_ms": None},
+        {"name": "blend_bwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_bwd.cu",
+         "replaces": "gsjax/ops/raster/render_pallas.py:806",
+         "launches": train_launches["blend_bwd"],
+         "launches_by_path": {"render": 0, "train": train_launches["blend_bwd"]},
+         "max_abs_err": max(e["pair_max_err"] for e in bwd_err.values()),
+         "ms": b2_ms, "plain_ms": bwd_twin_ms, "bound_ms": b2_bound["bound_ms"],
+         "bound_by": b2_bound["bound_by"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,10 +3,10 @@
 Each source under `csrc/` is compiled with `nvcc` for Hopper (`sm_90a`) into
 a shared library with a plain C interface and loaded with `ctypes`. The
 build goes into `build/gsjax_torch/` at the repository root at first use;
-the library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing is compiled
-when this module is imported: the CPU tests import every module, and the CPU
-machine has no `nvcc`.
+the library's file name carries a hash of its source, the shared headers
+under `csrc/` and the flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing is compiled when this module is imported:
+the CPU tests import every module, and the CPU machine has no `nvcc`.
 """
 
 from __future__ import annotations
@@ -40,6 +40,15 @@ KERNELS = {
                                        # sample_range, min_transmittance
         _P,                            # cudaStream_t
     ]),
+    "blend_bwd": ("csrc/blend_bwd.cu", "gsjax_blend_bwd", [
+        _P, _P, _P, _P, _P, _P, _P,    # feats, tile_start, tile_count, planes,
+                                       # grad, bg, d_feats
+        _I, _I, _I, _I, _I,            # width, height, tiles_x, tiles_y, tile
+        _F, _F,                        # fx, fy
+        _I, _I,                        # max_per_tile, require_depth
+        _F, _F,                        # alpha_clamp, alpha_min
+        _P,                            # cudaStream_t
+    ]),
 }
 
 _lock = threading.Lock()
@@ -58,7 +67,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = _PKG / KERNELS[name][0]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(src.parent.glob("*.cuh"))    # shared by the sources
+    h = hashlib.sha256(b"".join(p.read_bytes() for p in [src, *headers])
+                       + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

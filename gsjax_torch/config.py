@@ -1,9 +1,8 @@
-"""Config / CLI system (the parts of `gsjax/config.py` the render CLI uses,
-copied so the port never imports gsjax; `get_combined_args` also takes an
-explicit argv).
+"""Config / CLI system (a copy of `gsjax/config.py`, so the port never
+imports gsjax; `get_combined_args` also takes an explicit argv).
 
-Mirrors `arguments/__init__.py`: the model and pipeline parameter groups with
-the same flag names and defaults (listed fields get one-letter shorthands),
+Mirrors `arguments/__init__.py`: the model, pipeline and optimisation
+parameter groups with the same flag names and defaults (listed fields get one-letter shorthands),
 and the `cfg_args` dump + merge used by inference tools
 (`get_combined_args`, :125-145). The dump is a plain repr-style Namespace
 string for compatibility, parsed back without `eval`.
@@ -15,6 +14,10 @@ import argparse
 import ast
 import os
 import sys
+
+
+class GroupParams:
+    pass
 
 
 class ParamGroup:
@@ -36,6 +39,12 @@ class ParamGroup:
     def _defaults(cls) -> dict:
         return {k: v for k, v in vars(cls).items()
                 if not k.startswith("_") and not callable(v)}
+
+    def extract(self, args) -> GroupParams:
+        g = GroupParams()
+        for k in self._defaults():
+            setattr(g, k, getattr(args, k))
+        return g
 
 
 class ModelParams(ParamGroup):
@@ -64,6 +73,11 @@ class ModelParams(ParamGroup):
     def __init__(self, parser, sentinel=False):
         super().__init__(parser, "Loading Parameters", sentinel)
 
+    def extract(self, args):
+        g = super().extract(args)
+        g.source_path = os.path.abspath(g.source_path)
+        return g
+
 
 class PipelineParams(ParamGroup):
     convert_SHs_python = False
@@ -72,6 +86,50 @@ class PipelineParams(ParamGroup):
 
     def __init__(self, parser):
         super().__init__(parser, "Pipeline Parameters")
+
+
+class OptimizationParams(ParamGroup):
+    """arguments/__init__.py:82-123."""
+    iterations = 30_000
+    position_lr_init = 0.00016
+    position_lr_final = 0.0000016
+    position_lr_delay_mult = 0.01
+    position_lr_max_steps = 30_000
+    feature_dc_lr = 0.0013
+    feature_rest_lr = 0.00011
+    opacity_lr = 0.05
+    scaling_lr = 0.005
+    rotation_lr = 0.001
+    sg_axis_lr = 0.002
+    sg_sharpness_lr = 0.095
+    sg_color = 0.00064
+    appearance_embeddings_lr = 0.001
+    appearance_network_lr = 0.001
+    pgsr_appearance_lr = 0.001
+    gs_appearance_lr_init = 0.01
+    gs_appearance_lr_final = 0.001
+    gs_appearance_lr_delay_steps = 0
+    gs_appearance_lr_delay_mult = 0.0
+    percent_dense = 0.01
+    lambda_dssim = 0.2
+    lambda_depth_normal = 0.05
+    densification_interval = 100
+    opacity_reset_interval = 3000
+    densify_from_iter = 500
+    densify_until_iter = 15_000
+    regularization_from_iter = 7000
+    densify_grad_threshold = 0.0002
+    lambda_multi_view_geo = 0.02
+    lambda_multi_view_ncc = 0.6
+    multi_view_patch_size = 3
+    multi_view_pixel_noise_th = 1.0
+    # parsed but unused in the reference too (arguments/__init__.py:119)
+    use_geo_occ_aware = True
+    # random per-step background colour (train.py:91)
+    random_background = False
+
+    def __init__(self, parser):
+        super().__init__(parser, "Optimization Parameters")
 
 
 def dump_cfg_args(model_path, args):

@@ -41,12 +41,12 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kF = 16;                  // floats per pair payload
-constexpr int kSide = 16;               // block = kSide x kSide pixels
-constexpr int kThreads = kSide * kSide;
-constexpr int kBatch = kThreads;        // pairs staged per batch
+using namespace blend;
+
 // render_pallas.py uses 7 iterations without the progress test below; on
 // dense scenes that leaves ~0.5% of pixels short of the root (bracket still
 // up to 0.3 wide), 12 with the test converge on every pixel measured.
@@ -62,49 +62,6 @@ struct Params {
   int width, height, tiles_x, tile, max_per_tile, require_depth;
   float fx, fy, alpha_clamp, alpha_min, t_min, sample_range, min_transmittance;
 };
-
-// Payload as four float4 per pair: mean2d(0,1) conic(2,3,4) opacity(5)
-// colour(6,7,8) ray_plane(9,10,11,12) normal(13,14,15):
-//   q0 = (gx, gy, ca, cb)  q1 = (cc, op, r, g)
-//   q2 = (b, rp0, rp1, tc) q3 = (rsigma, nx, ny, nz)
-using Batch = float4[kBatch][4];
-
-__device__ __forceinline__ void stage(const Params& p, Batch& s, int start,
-                                      int b0, int n) {
-  const int i = threadIdx.y * kSide + threadIdx.x;
-  if (i < n) {
-    const float4* src = reinterpret_cast<const float4*>(
-        p.feats + (static_cast<size_t>(start) + b0 + i) * kF);
-    s[i][0] = src[0];
-    s[i][1] = src[1];
-    s[i][2] = src[2];
-    s[i][3] = src[3];
-  }
-}
-
-// alpha of pair (q0, q1) at pixel (px, py); false if the pair is skipped
-// (power > 0 or alpha < alpha_min), as render_ref._alpha_terms.
-__device__ __forceinline__ bool pair_alpha(const Params& p, float4 q0,
-                                           float4 q1, float px, float py,
-                                           float& alpha, float& dx,
-                                           float& dy) {
-  dx = q0.x - px;
-  dy = q0.y - py;
-  const float power = -0.5f * (q0.z * dx * dx + q1.x * dy * dy) - q0.w * dx * dy;
-  if (power > 0.f) return false;
-  alpha = fminf(p.alpha_clamp, q1.y * expf(power));
-  return alpha >= p.alpha_min;
-}
-
-__device__ int block_max(int v, int* slot) {
-  __syncthreads();                      // earlier readers of *slot are done
-  if (threadIdx.x == 0 && threadIdx.y == 0) *slot = 0;
-  __syncthreads();
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (((threadIdx.y * kSide + threadIdx.x) & 31) == 0) atomicMax(slot, v);
-  __syncthreads();
-  return *slot;
-}
 
 // log T(ts[k]) of the half-gaussian-CDF model (render_pallas.py:_median_model)
 // over this pixel's applied pairs (index < my_n), for NPTS depths in one
@@ -122,12 +79,14 @@ __device__ void model_sweep(const Params& p, Batch& s, int start, int nmax,
   for (int b0 = 0; b0 < nmax; b0 += kBatch) {
     __syncthreads();                    // the previous batch is consumed
     const int n = min(kBatch, nmax - b0);
-    stage(p, s, start, b0, n);
+    stage(p.feats, s, start, b0, n);
     __syncthreads();
     const int jn = min(n, my_n - b0);
     for (int j = 0; j < jn; ++j) {
-      float alpha, dx, dy;
-      if (!pair_alpha(p, s[j][0], s[j][1], px, py, alpha, dx, dy)) continue;
+      float alpha, expp, dx, dy;
+      if (!pair_alpha(p.alpha_clamp, p.alpha_min, s[j][0], s[j][1], px, py,
+                      alpha, expp, dx, dy))
+        continue;
       const float4 q2 = s[j][2];
       const float rsig = s[j][3].x;
       const float t_peak = q2.y * dx + q2.z * dy + q2.w;
@@ -177,13 +136,15 @@ blend_fwd_kernel(const Params p) {
     // also the barrier before the batch buffer is overwritten
     if (__syncthreads_count(done) == kThreads) break;
     const int n = min(kBatch, count - b0);
-    stage(p, s, start, b0, n);
+    stage(p.feats, s, start, b0, n);
     __syncthreads();
     if (done) continue;
     for (int j = 0; j < n; ++j) {
       const float4 q0 = s[j][0], q1 = s[j][1];
-      float alpha, dx, dy;
-      if (!pair_alpha(p, q0, q1, px, py, alpha, dx, dy)) continue;
+      float alpha, expp, dx, dy;
+      if (!pair_alpha(p.alpha_clamp, p.alpha_min, q0, q1, px, py, alpha, expp,
+                      dx, dy))
+        continue;
       const float test_t = T * (1.f - alpha);
       if (test_t < p.t_min) {
         done = true;

@@ -1,5 +1,6 @@
 """Scene readers (port of `gsjax/data/readers.py`: `read_colmap_scene`,
-`load_scene`).
+`load_scene`, and the numpy-only `camera_to_json`, `write_scene_artifacts`
+and `build_nearest_view_graph`, copied).
 
 Replaces `scene/dataset_readers.py` (:202-341) and the resolution handling of
 `utils/camera_utils.py:22-74`. Produces `SceneView` records holding numpy
@@ -9,6 +10,7 @@ images (channels-last, [0,1]) plus the port's `Camera` on the scene's device.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional
 
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from gsjax_torch import resolve_device
-from gsjax_torch.core.transforms import focal2fov
+from gsjax_torch.core.transforms import focal2fov, fov2focal
 from gsjax_torch.data import colmap
 from gsjax_torch.data.ply import write_pointcloud
 from gsjax_torch.ops.raster.camera import Camera
@@ -35,6 +37,7 @@ class SceneView:
     width: int
     height: int
     device: torch.device = torch.device("cpu")
+    nearest_ids: list = dataclasses.field(default_factory=list)
 
     _camera: Optional[Camera] = None
 
@@ -161,3 +164,54 @@ def load_scene(source_path, images="images", masks=None, eval_split=False,
         raise NotImplementedError(
             "Blender scenes are not read by gsjax_torch yet; use gsjax")
     raise ValueError(f"no COLMAP sparse/ or transforms_train.json under {source_path}")
+
+
+def camera_to_json(idx, view: SceneView) -> dict:
+    """Viewer-facing camera record (utils/camera_utils.py:76-96): c2w
+    position/rotation plus pixel focal lengths, consumed by the SIBR
+    ecosystem's cameras.json."""
+    return {
+        "id": idx,
+        "img_name": view.image_name,
+        "width": int(view.width),
+        "height": int(view.height),
+        "position": [float(x) for x in view.camera_center],
+        "rotation": [[float(x) for x in row] for row in view.R],
+        "fy": float(fov2focal(view.fovy, view.height)),
+        "fx": float(fov2focal(view.fovx, view.width)),
+    }
+
+
+def write_scene_artifacts(model_path: str, info: SceneInfo) -> None:
+    """Model-dir artifacts the reference Scene writes on a fresh run
+    (scene/__init__.py:56-68): the initialisation point cloud copied to
+    input.ply and all cameras (test first, then train) as cameras.json."""
+    os.makedirs(model_path, exist_ok=True)
+    try:
+        with open(info.ply_path, "rb") as src, \
+                open(os.path.join(model_path, "input.ply"), "wb") as dst:
+            dst.write(src.read())
+    except OSError:
+        pass  # source scenes without a materialised ply (read-only dirs)
+    cams = [camera_to_json(i, v)
+            for i, v in enumerate(list(info.test_views) + list(info.train_views))]
+    with open(os.path.join(model_path, "cameras.json"), "w") as f:
+        json.dump(cams, f)
+
+
+def build_nearest_view_graph(views, max_angle=30.0, min_dis=0.01, max_dis=1.5,
+                             multi_view_num=8):
+    """Nearest-view selection by lexsort(angle, distance) with thresholds
+    (scene/__init__.py:83-118). Sets views[i].nearest_ids."""
+    centers = np.stack([v.camera_center for v in views], axis=0)
+    rays = np.stack([v.R @ np.array([0.0, 0.0, 1.0]) for v in views], axis=0)
+    rays = rays / np.maximum(np.linalg.norm(rays, axis=1, keepdims=True), 1e-12)
+    diss = np.linalg.norm(centers[:, None] - centers[None], axis=-1)
+    cosang = np.clip((rays[:, None] * rays[None]).sum(-1), -1, 1)
+    angles = np.arccos(cosang) * 180 / 3.14159
+    for i, v in enumerate(views):
+        order = np.lexsort((angles[i], diss[i]))
+        m = ((angles[i][order] < max_angle) & (diss[i][order] > min_dis)
+             & (diss[i][order] < max_dis))
+        v.nearest_ids = [int(s) for s in order[m][:multi_view_num]]
+    return views

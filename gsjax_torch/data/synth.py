@@ -61,14 +61,16 @@ def arc_pose(i, n, radius=3.5, target=(0.0, 0.0, 0.0)):
 
 def write_rendered_colmap(root, n_images=6, width=96, height=64,
                           n_gauss=250, seed=0, gaussians=None, pose_fn=None,
-                          max_per_tile=1 << 9,
+                          max_per_tile=1 << 9, points_stride=3,
                           device: str | torch.device | None = None):
     """Render a known gaussian scene from an arc of poses and save it as a
     binary COLMAP dataset. Returns the gaussian tuple used.
 
     `gaussians` overrides the default blob scene (a 5-tuple as returned by
-    make_gaussians); `pose_fn(i, n)` overrides arc_pose. Renders on `device`
-    (cuda unless asked for the CPU)."""
+    make_gaussians); `pose_fn(i, n)` overrides arc_pose. The sparse points
+    (what training initialises from) are every `points_stride`-th gaussian
+    centre with its DC colour. Renders on `device` (cuda unless asked for
+    the CPU)."""
     from PIL import Image
 
     from gsjax_torch import resolve_device
@@ -114,15 +116,17 @@ def write_rendered_colmap(root, n_images=6, width=96, height=64,
             Image.fromarray((img * 255).astype(np.uint8)).save(
                 os.path.join(imgdir, f"img_{i:03d}.png"))
 
-    sub = means[::3]
-    cols = np.clip(shs[::3, 0] * 0.282 + 0.5, 0, 1)
+    sub = means[::points_stride]
+    cols = np.clip(shs[::points_stride, 0] * 0.282 + 0.5, 0, 1)
+    rec = np.zeros(len(sub), np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+        ("track_len", "<u8"), ("track", "<i4", 4)]))
+    rec["id"] = np.arange(len(sub))
+    rec["xyz"] = sub
+    rec["rgb"] = (cols * 255).astype("u1")
+    rec["err"] = 0.5
+    rec["track_len"] = 2
     with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
         f.write(struct.pack("<Q", len(sub)))
-        for i, p in enumerate(sub):
-            f.write(struct.pack("<Q", i))
-            f.write(p.astype("<f8").tobytes())
-            f.write((cols[i] * 255).astype("u1").tobytes())
-            f.write(struct.pack("<d", 0.5))
-            f.write(struct.pack("<Q", 2))
-            f.write(np.zeros(4, "<i4").tobytes())
+        f.write(rec.tobytes())
     return g

@@ -1,10 +1,15 @@
-"""PLY snapshots of the model (port of `gsjax/model/io.py:save_ply/load_ply`).
+"""PLY snapshots and training checkpoints of the model (port of
+`gsjax/model/io.py`).
 
 The attribute layout is the reference's (scene/gaussian_model.py:450-493) and
 gsjax's: x,y,z, nx..nz, f_dc_*, f_rest_*, opacity, scale_*, rot_*,
 sg_axis_*, sg_sharpness_*, sg_color_*, filter_3D, so a file written by either
 package loads in the other. f_rest is flattened channel-major:
 f_rest_i = features_rest[:, i % M, i // M] for M = bands-1.
+
+Checkpoints are `.npz` files with gsjax's keys (p_/mu_/nu_<param>,
+a_<aux>, adam_count, iteration, x_<extra>), so one moves between the two
+packages in both directions.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ import torch
 
 from gsjax_torch import resolve_device
 from gsjax_torch.data.ply import read_ply, write_ply
-from gsjax_torch.model.gaussians import GaussianAux, GaussianParams
+from gsjax_torch.model.gaussians import (AUX_FIELDS, PARAM_FIELDS, AdamState,
+                                         GaussianAux, GaussianParams,
+                                         params_from_numpy)
 
 
 def save_ply(path, params: GaussianParams, aux: GaussianAux):
@@ -110,3 +117,36 @@ def load_ply(path, capacity: int | None = None,
         denom=zeros.clone(),
         max_radii=torch.zeros(cap, dtype=torch.int32, device=dev))
     return params, aux
+
+
+def save_checkpoint(path, params: GaussianParams, aux: GaussianAux,
+                    adam: AdamState, iteration: int, extra: dict | None = None):
+    """Full training checkpoint (replaces torch.save(capture()),
+    scene/gaussian_model.py:88-113)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np_ = lambda t: t.detach().cpu().numpy()
+    arrs = {"iteration": np.asarray(iteration)}
+    for k in PARAM_FIELDS:
+        arrs[f"p_{k}"] = np_(getattr(params, k))
+        arrs[f"mu_{k}"] = np_(adam.mu[k])
+        arrs[f"nu_{k}"] = np_(adam.nu[k])
+    for k in AUX_FIELDS:
+        arrs[f"a_{k}"] = np_(getattr(aux, k))
+    arrs["adam_count"] = np.asarray(adam.count, np.int32)
+    for k, v in (extra or {}).items():
+        arrs[f"x_{k}"] = np.asarray(v)
+    np.savez_compressed(path, **arrs)
+
+
+def load_checkpoint(path, device: str | torch.device | None = None):
+    """-> (params, aux, adam, iteration, extra) on `device` (cuda unless
+    asked for the CPU)."""
+    dev = resolve_device(device)
+    z = np.load(path)
+    params, aux = params_from_numpy({k: z[f"p_{k}"] for k in PARAM_FIELDS},
+                                    {k: z[f"a_{k}"] for k in AUX_FIELDS}, dev)
+    moments = lambda pre: {k: torch.as_tensor(np.asarray(z[f"{pre}_{k}"], np.float32),
+                                              device=dev) for k in PARAM_FIELDS}
+    adam = AdamState(mu=moments("mu"), nu=moments("nu"), count=int(z["adam_count"]))
+    extra = {k[2:]: z[k] for k in z.files if k.startswith("x_")}
+    return params, aux, adam, int(z["iteration"]), extra

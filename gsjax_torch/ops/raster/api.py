@@ -2,9 +2,14 @@
 
 Port of `gsjax/ops/raster/api.py` (`GaussianRasterizer.forward` + `render()`,
 diff_gaussian_rasterization/__init__.py:272-483), returning the same dict of
-channels-last images. The blend runs through `render_cuda.blend_fwd` (the
-hand-written Hopper kernel for CUDA tensors, its plain twin for CPU tensors)
-or, with `cfg.backend == "torch"`, through the twin on any device.
+channels-last images. The blend runs through the autograd Function
+`render_cuda.Blend` with `blend_fwd` / `blend_bwd` (the hand-written Hopper
+kernels B1 / B2 for CUDA tensors, their plain twins for CPU tensors) or,
+with `cfg.backend == "torch"`, with the twins on any device. `render` is
+differentiable in its float inputs through torch autograd (preprocess, the
+pair gather) and B2 (the blend); `mean2d_offset` is a zero gradient tap on
+the projected centres for the densification statistics
+(gsjax/ops/raster/api.py:107-108).
 """
 
 from __future__ import annotations
@@ -28,9 +33,13 @@ def _blend(feats, binning, camera: Camera, cfg: RasterConfig, bg):
     if cfg.backend == "cuda" and feats.device.type != "cuda":
         raise ValueError("backend='cuda' needs CUDA tensors; got tensors on "
                          f"{feats.device}")
-    blend = render_ref.blend_planes if cfg.backend == "torch" else render_cuda.blend_fwd
-    return blend(feats, binning.tile_start, binning.tile_count, camera.width,
-                 camera.height, camera.fx, camera.fy, bg, cfg)
+    if cfg.backend == "torch":
+        fwd, bwd = render_ref.blend_planes, render_ref.blend_bwd_planes
+    else:
+        fwd, bwd = render_cuda.blend_fwd, render_cuda.blend_bwd
+    return render_cuda.Blend.apply(feats, binning.tile_start, binning.tile_count,
+                                   camera.width, camera.height, camera.fx,
+                                   camera.fy, bg, cfg, fwd, bwd)
 
 
 def mark_visible(means3d: torch.Tensor, camera: Camera,
@@ -55,7 +64,7 @@ def render(means3d: torch.Tensor,
            sg_color: torch.Tensor | None = None,
            alive: torch.Tensor | None = None,
            mean2d_offset: torch.Tensor | None = None) -> dict:
-    """Render one view (forward only).
+    """Render one view; differentiable in every float input.
 
     Args:
       means3d: [N,3]; scales/opacities post-activation (3D-filtered);
@@ -63,7 +72,8 @@ def render(means3d: torch.Tensor,
       camera, cfg: the camera (on the tensors' device) and the config.
       bg: [3] background colour.
       alive: [N] bool mask for padded model slots.
-      mean2d_offset: [N,2] added to the projected centres.
+      mean2d_offset: [N,2] added to the projected centres (zeros that
+        require grad: the densification statistics' gradient tap).
 
     Returns dict:
       render [H,W,3], alpha [H,W], normal [H,W,3], median_depth [H,W],

@@ -5,6 +5,12 @@ Port of `gsjax/ops/raster/preprocess.py` (`preprocessCUDA` / `computeCov2D`,
 render_forward.cu:81-386) as plain PyTorch over [N] rows: in gsjax this
 stage is XLA, not a Pallas kernel, so it has no hand-written kernel here
 either. The derivation notes in the gsjax module apply line for line.
+
+Its gradient is torch autograd, as gsjax's is XLA autodiff. Where a square
+root or a norm meets zero the forward guards with a clamp or a double
+`where` (`torch.linalg.norm` itself has a zero gradient at zero), so an
+alive gaussian never gets a NaN gradient; dead slots are masked to zero by
+the caller (train/step.py).
 """
 
 from __future__ import annotations
@@ -158,7 +164,10 @@ def preprocess(means3d: torch.Tensor,
     factor = l / ray_len2
     plane0 = ((v * v + 1.0) * m[:, 0] - u * v * m[:, 1]) / vb_safe
     plane1 = (-u * v * m[:, 0] + (u * u + 1.0) * m[:, 1]) / vb_safe
-    rsigma = torch.sqrt(vb.clamp_min(0.0) / ray_len2)
+    # sqrt(max(vb, 0) / len2), with no inf/NaN gradient where vb <= 0
+    vb_pos = vb > 0
+    rsigma = torch.where(vb_pos, torch.sqrt(torch.where(vb_pos, vb, 1.0) / ray_len2),
+                         torch.zeros_like(vb))
     ray_plane = torch.stack([plane0 * factor / fx, plane1 * factor / fy, tc, rsigma], -1)
 
     rnv0 = -plane0 * factor

@@ -1,11 +1,19 @@
-"""Forward tile blend: wrapper of the CUDA kernel `csrc/blend_fwd.cu`.
+"""Tile blend kernels: wrappers of `csrc/blend_fwd.cu` (B1) and
+`csrc/blend_bwd.cu` (B2), and the autograd Function that pairs them.
 
-The kernel replaces the TPU kernel `gsjax/ops/raster/render_pallas.py:
-_fwd_kernel` + `_median_search`. `blend_fwd` takes the pair payload of a
-frame in binning order and returns its [16, H, W] planes (rows as in
-`render_ref`). For a tensor on the CPU it runs the plain-PyTorch twin
-`render_ref.blend_planes`; for a CUDA tensor it launches the kernel or
-raises. `blend_fwd.launches` counts kernel launches.
+B1 replaces the TPU kernel `gsjax/ops/raster/render_pallas.py:_fwd_kernel` +
+`_median_search`, B2 its backward `_bwd_kernel`. `blend_fwd` takes the pair
+payload of a frame in binning order and returns its [16, H, W] planes (rows
+as in `render_ref`); `blend_bwd` takes those planes and their cotangent and
+returns d(payload) [K, 16]. For tensors on the CPU each runs its plain-PyTorch
+twin (`render_ref.blend_planes`, `render_ref.blend_bwd_planes`); for CUDA
+tensors each launches its kernel or raises. `blend_fwd.launches` and
+`blend_bwd.launches` count kernel launches.
+
+`Blend` is the differentiable blend, as gsjax's `custom_vjp` `blend_pallas`:
+its forward runs a forward blend and keeps the payload, the lists and the
+planes; its backward runs the matching backward blend on the cotangent of
+rows 0-7 (rows 8-15 are not differentiable).
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ from gsjax_torch import _build
 from gsjax_torch.ops.raster import render_ref
 from gsjax_torch.ops.raster.config import RasterConfig
 
-_SIDE = 16  # pixels per side of the kernel's thread block
+_SIDE = 16  # pixels per side of the kernels' thread block
 
 
 def _check(name, t, dtype, shape, device):
@@ -30,19 +38,12 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def blend_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
-              tile_count: torch.Tensor, width: int, height: int, fx: float,
-              fy: float, bg: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
-    """Blend every tile of a frame -> [16, H, W] float32 planes.
-
-    feats_pairs [K, 16] float32 (render_ref.prepare_pairs), tile_start /
-    tile_count [T] int32, bg [3] float32, all on one device."""
-    if feats_pairs.device.type == "cpu":
-        return render_ref.blend_planes(feats_pairs, tile_start, tile_count,
-                                       width, height, fx, fy, bg, cfg)
+def _check_launch(name, feats_pairs, tile_start, tile_count, bg, width, height,
+                  cfg: RasterConfig) -> tuple[int, int]:
+    """Argument checks shared by both kernels; returns (tiles_x, tiles_y)."""
     dev = feats_pairs.device
     if dev.type != "cuda":
-        raise ValueError(f"blend_fwd runs on cuda or cpu tensors, not {dev}")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
     if cfg.tile % _SIDE:
         raise ValueError(f"the CUDA blend needs a tile size divisible by {_SIDE}, "
                          f"got {cfg.tile}")
@@ -57,9 +58,24 @@ def blend_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
         raise ValueError("feats_pairs must be 16-byte aligned (float4 loads)")
     if feats_pairs.shape[0] >= 2 ** 31:
         raise ValueError("more than 2^31 pairs do not fit int32 tile offsets")
+    return tiles_x, tiles_y
 
+
+def blend_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
+              tile_count: torch.Tensor, width: int, height: int, fx: float,
+              fy: float, bg: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """Blend every tile of a frame -> [16, H, W] float32 planes.
+
+    feats_pairs [K, 16] float32 (render_ref.prepare_pairs), tile_start /
+    tile_count [T] int32, bg [3] float32, all on one device."""
+    if feats_pairs.device.type == "cpu":
+        return render_ref.blend_planes(feats_pairs, tile_start, tile_count,
+                                       width, height, fx, fy, bg, cfg)
+    tiles_x, tiles_y = _check_launch("blend_fwd", feats_pairs, tile_start,
+                                     tile_count, bg, width, height, cfg)
+    dev = feats_pairs.device
     out = torch.empty(render_ref.N_PLANES, height, width, device=dev)
-    if n_tiles == 0:
+    if tiles_x * tiles_y == 0:
         return out
     fn = _build.load("blend_fwd").gsjax_blend_fwd
     with torch.cuda.device(dev):
@@ -77,3 +93,68 @@ def blend_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
 
 
 blend_fwd.launches = 0
+
+
+def blend_bwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
+              tile_count: torch.Tensor, planes: torch.Tensor,
+              grad_planes: torch.Tensor, width: int, height: int, fx: float,
+              fy: float, bg: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """VJP of `blend_fwd` w.r.t. the pair payload -> d_feats [K, 16] float32.
+
+    planes [16, H, W]: `blend_fwd`'s output for these arguments; grad_planes
+    [16, H, W]: its cotangent (rows 0-7 read). Other arguments as
+    `blend_fwd`."""
+    if feats_pairs.device.type == "cpu":
+        return render_ref.blend_bwd_planes(feats_pairs, tile_start, tile_count,
+                                           planes, grad_planes, width, height,
+                                           fx, fy, bg, cfg)
+    tiles_x, tiles_y = _check_launch("blend_bwd", feats_pairs, tile_start,
+                                     tile_count, bg, width, height, cfg)
+    dev = feats_pairs.device
+    _check("planes", planes, torch.float32, (render_ref.N_PLANES, height, width), dev)
+    _check("grad_planes", grad_planes, torch.float32,
+           (render_ref.N_PLANES, height, width), dev)
+    d_feats = torch.zeros_like(feats_pairs)
+    if tiles_x * tiles_y == 0 or feats_pairs.shape[0] == 0:
+        return d_feats
+    fn = _build.load("blend_bwd").gsjax_blend_bwd
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(),
+                tile_count.data_ptr(), planes.data_ptr(), grad_planes.data_ptr(),
+                bg.data_ptr(), d_feats.data_ptr(), width, height, tiles_x,
+                tiles_y, cfg.tile, fx, fy, cfg.max_per_tile,
+                int(cfg.require_depth), cfg.alpha_clamp, cfg.alpha_min, stream)
+    if rc != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {rc}")
+    blend_bwd.launches += 1
+    return d_feats
+
+
+blend_bwd.launches = 0
+
+
+class Blend(torch.autograd.Function):
+    """Differentiable blend of a frame: planes = fwd(feats, ...), with
+    d(feats) = bwd(feats, ..., planes, d(planes)). `fwd` / `bwd` are
+    `blend_fwd` / `blend_bwd` (kernels on CUDA tensors, twins on the CPU) or
+    the twins `render_ref.blend_planes` / `blend_bwd_planes` on any device.
+    Only `feats` gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, tile_start, tile_count, width, height, fx, fy, bg,
+                cfg, fwd, bwd):
+        planes = fwd(feats, tile_start, tile_count, width, height, fx, fy, bg, cfg)
+        ctx.save_for_backward(feats, tile_start, tile_count, planes, bg)
+        ctx.args = (width, height, fx, fy, cfg, bwd)
+        return planes
+
+    @staticmethod
+    def backward(ctx, grad_planes):
+        feats, tile_start, tile_count, planes, bg = ctx.saved_tensors
+        width, height, fx, fy, cfg, bwd = ctx.args
+        g = torch.zeros_like(planes)
+        g[:8] = grad_planes[:8]          # rows 8-15 are not differentiable
+        d_feats = bwd(feats, tile_start, tile_count, planes, g, width, height,
+                      fx, fy, bg, cfg)
+        return (d_feats,) + (None,) * 10

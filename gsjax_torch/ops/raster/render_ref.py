@@ -1,4 +1,5 @@
-"""Tile blend in plain PyTorch: the twin of the CUDA kernel `csrc/blend_fwd.cu`.
+"""Tile blend in plain PyTorch: the twin of the CUDA kernels
+`csrc/blend_fwd.cu` (forward, B1) and `csrc/blend_bwd.cu` (backward, B2).
 
 Port of `gsjax/ops/raster/render_ref.py` with the same semantics
 (render_forward.cu:391-671):
@@ -20,6 +21,10 @@ Both paths return the same per-pixel planes, [16, H, W] float32:
   9 md_init, 10 T_final, 11 in_range, 12 dlogT/dt at the median, 13-15 zero
 (the rows of gsjax's Pallas forward, render_pallas.py:32-36; 9-12 are what
 a backward pass reads). The twin evaluates row 12 at its bisection root.
+
+`blend_bwd_planes` is the VJP of the blend w.r.t. the pair payload, read from
+those residual planes as B2 reads them: the blend part front to back from
+the totals, and the median depth's implicit-function term.
 """
 
 from __future__ import annotations
@@ -67,13 +72,19 @@ def _gather_chunk(feats_pad, starts, limit, base, chunk):
     return feats_pad[idx], rel, valid
 
 
+def _power(f, dx, dy):
+    """Gaussian exponent at offsets dx, dy [B,C,P] from payload f [B,C,16]."""
+    ca, cb, cc = f[..., 2:3], f[..., 3:4], f[..., 4:5]
+    return -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+
+
 def _alpha_terms(f, px, py, cfg: RasterConfig, entry_valid):
     """f [B,C,16]; px, py [B,P] -> alpha (0 where skipped), passes, dx, dy [B,C,P]."""
     dx = f[..., 0:1] - px[:, None, :]
     dy = f[..., 1:2] - py[:, None, :]
-    ca, cb, cc, op = f[..., 2:3], f[..., 3:4], f[..., 4:5], f[..., 5:6]
-    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    alpha = torch.clamp_max(op * torch.exp(torch.clamp_max(power, 0.0)), cfg.alpha_clamp)
+    power = _power(f, dx, dy)
+    alpha = torch.clamp_max(f[..., 5:6] * torch.exp(torch.clamp_max(power, 0.0)),
+                            cfg.alpha_clamp)
     passes = (power <= 0.0) & (alpha >= cfg.alpha_min) & entry_valid[..., None]
     return torch.where(passes, alpha, torch.zeros_like(alpha)), passes, dx, dy
 
@@ -175,6 +186,13 @@ def bisect_batch(feats_pad, starts, n_contrib, md_init, t_final, px, py,
     return m_depth, in_range
 
 
+def _ray_to_z(px, py, width, height, fx, fy):
+    """Ray-distance -> z-depth factor of each pixel (render_pallas._ray_to_z)."""
+    pnx = (px - (width - 1) / 2.0) / fx
+    pny = (py - (height - 1) / 2.0) / fy
+    return torch.rsqrt(pnx * pnx + pny * pny + 1.0)
+
+
 def blend_tiles_batch(feats_pad, tile_ids, starts, counts, tiles_x,
                       cfg: RasterConfig, bg, width, height, fx, fy):
     """Blend a batch of tiles; counts are already clamped at max_per_tile.
@@ -210,10 +228,7 @@ def blend_tiles_batch(feats_pad, tile_ids, starts, counts, tiles_x,
         # dlogT/dt at the root, the backward's implicit-function denominator
         _, d_denom = _log_t_model(feats_pad, starts, n_contrib, px, py,
                                   m_depth[..., None], cfg, want_d=True)
-        pnx = (px - (width - 1) / 2.0) / fx
-        pny = (py - (height - 1) / 2.0) / fy
-        rln = torch.rsqrt(pnx * pnx + pny * pny + 1.0)
-        out[:, 7] = m_depth * rln
+        out[:, 7] = m_depth * _ray_to_z(px, py, width, height, fx, fy)
         out[:, 11] = in_range.to(torch.float32)
         out[:, 12] = torch.where(in_range, d_denom[..., 0], torch.zeros_like(m_depth))
     return out
@@ -242,6 +257,138 @@ def blend_planes(feats_pairs, tile_start, tile_count, width, height, fx, fy,
     img = tiles.reshape(tiles_y, tiles_x, N_PLANES, t, t)
     img = img.permute(2, 0, 3, 1, 4).reshape(N_PLANES, tiles_y * t, tiles_x * t)
     return img[:, :height, :width].contiguous()
+
+
+def _to_tiles(img, cfg: RasterConfig, width, height):
+    """[C, H, W] planes -> [T, C, P] per-tile pixel rows (inverse of the
+    assembly at the end of `blend_planes`)."""
+    tiles_x, tiles_y = cfg.grid(width, height)
+    t = cfg.tile
+    c = img.shape[0]
+    pad = img.new_zeros(c, tiles_y * t, tiles_x * t)
+    pad[:, :height, :width] = img
+    return pad.reshape(c, tiles_y, t, tiles_x, t).permute(1, 3, 0, 2, 4) \
+        .reshape(tiles_y * tiles_x, c, t * t)
+
+
+def bwd_tiles_batch(feats_pad, d_pad, tile_ids, starts, counts, tiles_x, res, g,
+                    cfg: RasterConfig, bg, width, height, fx, fy):
+    """Add the pair gradients of a batch of tiles into d_pad [K+1, 16] (the
+    last row takes the pad slots). res, g: [B, 16, P] forward planes and
+    their cotangent. The math of `render_pallas._bwd_kernel` (:856-988)."""
+    px, py = _tile_pixels(tile_ids, tiles_x, cfg)
+    t_final = res[:, 10]
+    n_contrib = torch.minimum(res[:, 8].to(torch.int64), counts[:, None])
+    has = (n_contrib > 0).to(torch.float32)[:, None]
+    om = torch.clamp_min(1.0 - t_final, 1e-12)
+    inv_om = 1.0 / om
+    gc = g[:, 0:3]                                   # dL/dcolour [B,3,P]
+    gn_raw = g[:, 3:6] * has
+    gn = gn_raw * inv_om[:, None]                    # dL/d(accumulated normal)
+    n_acc = res[:, 3:6] * om[:, None]
+    c_acc = res[:, 0:3] - t_final[:, None] * bg[None, :, None]
+    # total dL/dT_final through colour (bg), alpha and the normal's 1/(1-T)
+    gamma = -g[:, 6] + (bg[None, :, None] * gc).sum(1) + \
+        inv_om * inv_om * (gn_raw * n_acc).sum(1)
+    s_q = (gc * c_acc).sum(1) + (gn * n_acc).sum(1)  # sum_j w_j q_j
+    tf_gamma = t_final * gamma
+    if cfg.require_depth:
+        # implicit function: dm/dtheta = -(dlogT/dtheta) / (dlogT/dt)
+        rln = _ray_to_z(px, py, width, height, fx, fy)
+        m_t = res[:, 7] / rln
+        d_den = res[:, 12]
+        ok = (res[:, 11] > 0) & (d_den.abs() > 1e-20)
+        s_pix = torch.where(ok, -g[:, 7] * rln / torch.where(ok, d_den, 1.0),
+                            torch.zeros_like(d_den))
+
+    limit = n_contrib.amax(dim=1)
+    log_t = torch.zeros_like(t_final)
+    wq = torch.zeros_like(t_final)
+    k_pad = d_pad.shape[0] - 1
+    for base in range(0, int(limit.max()) if len(tile_ids) else 0, cfg.chunk):
+        f, rel, valid = _gather_chunk(feats_pad, starts, limit, base, cfg.chunk)
+        a, passes, dx, dy = _alpha_terms(f, px, py, cfg, valid)
+        applied = passes & (rel[None, :, None] < n_contrib[:, None, :])
+        a = torch.where(applied, a, torch.zeros_like(a))
+        log1m = torch.log1p(-a)
+        t_prev = torch.exp(log_t[:, None, :] + torch.cumsum(log1m, dim=1) - log1m)
+        w = a * t_prev
+        q = torch.einsum("bck,bkp->bcp", f[..., 6:9], gc) + \
+            torch.einsum("bck,bkp->bcp", f[..., 13:16], gn)
+        wq_incl = wq[:, None, :] + torch.cumsum(w * q, dim=1)
+        d_a = t_prev * q - (s_q[:, None] - wq_incl + tf_gamma[:, None]) / (1.0 - a)
+        d_a = torch.where(applied, d_a, torch.zeros_like(d_a))
+        rsig = f[..., 12:13]
+        d_tp = torch.zeros_like(d_a)
+        d_rsig = torch.zeros_like(d_a)
+        if cfg.require_depth:
+            # the full half-gaussian-CDF term (render_pallas._median_model);
+            # the TPU kernel's 5-sigma skip is not copied
+            t_val = f[..., 9:10] * dx + f[..., 10:11] * dy + f[..., 11:12]
+            mt = m_t[:, None, :]
+            delta = (mt - t_val) * rsig
+            hg = torch.where(rsig > 0, torch.exp(-0.5 * delta * delta), torch.zeros_like(delta))
+            half_r = 0.5 / torch.clamp_min(1.0 - a * hg, 1e-12)
+            behind = mt > t_val
+            sp = torch.where(applied, s_pix[:, None, :], torch.zeros_like(d_a))
+            d_a = d_a + sp * torch.where(behind, -1.0 / (1.0 - a) + half_r * hg, -half_r * hg)
+            dlf_dg = torch.where(behind, half_r, -half_r) * a
+            d_tp = sp * dlf_dg * hg * delta * rsig
+            d_rsig = torch.where(rsig > 0, sp * dlf_dg * (-hg * delta * delta)
+                                 / torch.where(rsig > 0, rsig, 1.0), torch.zeros_like(d_a))
+        # chain alpha = min(clamp, op exp(power)) -> power, opacity
+        expp = torch.exp(torch.clamp_max(_power(f, dx, dy), 0.0))
+        notclamped = f[..., 5:6] * expp < cfg.alpha_clamp
+        d_pow = torch.where(notclamped, d_a * a, torch.zeros_like(d_a))
+        d_op = torch.where(notclamped, d_a * expp, torch.zeros_like(d_a))
+        ca, cb, cc = f[..., 2:3], f[..., 3:4], f[..., 4:5]
+        rp0, rp1 = f[..., 9:10], f[..., 10:11]
+        d_cols = [
+            d_pow * -(ca * dx + cb * dy) + d_tp * rp0,        # mean2d x
+            d_pow * -(cc * dy + cb * dx) + d_tp * rp1,        # mean2d y
+            d_pow * (-0.5 * dx * dx), d_pow * (-dx * dy),     # conic a, b
+            d_pow * (-0.5 * dy * dy), d_op,                   # conic c, opacity
+        ]
+        d_all = torch.cat([
+            torch.stack([c.sum(-1) for c in d_cols], -1),
+            torch.einsum("bcp,bkp->bck", w, gc),              # colour
+            torch.stack([(d_tp * dx).sum(-1), (d_tp * dy).sum(-1), d_tp.sum(-1),
+                         d_rsig.sum(-1)], -1),                # ray plane
+            torch.einsum("bcp,bkp->bck", w, gn),              # normal
+        ], dim=-1)
+        idx = torch.where(valid, starts[:, None] + rel[None, :], k_pad)
+        d_pad.index_add_(0, idx.reshape(-1), d_all.reshape(-1, _F))
+        log_t = log_t + log1m.sum(1)
+        wq = wq_incl[:, -1]
+
+
+def blend_bwd_planes(feats_pairs, tile_start, tile_count, planes, grad_planes,
+                     width, height, fx, fy, bg, cfg: RasterConfig) -> torch.Tensor:
+    """VJP of `blend_planes` w.r.t. the pair payload -> d_feats [K, 16].
+
+    `planes` [16, H, W] are the forward's output (B1's or the twin's), read as
+    the residuals B2 reads: n_contrib (row 8), T_final (10), the median
+    z-depth (7), in_range (11) and dlogT/dt at the root (12); the forward is
+    not re-run. `grad_planes` [16, H, W] is the cotangent of rows 0-7 (rows
+    8-15 are not differentiable and are ignored). A pixel's applied pairs are
+    those of its list before n_contrib that pass the alpha test, so a
+    stopped pixel stays stopped (the port's semantics, not gsjax's chunked
+    resume)."""
+    tiles_x, tiles_y = cfg.grid(width, height)
+    n_tiles = tiles_x * tiles_y
+    feats_pad = torch.cat([feats_pairs, feats_pairs.new_zeros(1, _F)])
+    d_pad = torch.zeros_like(feats_pad)
+    res = _to_tiles(planes, cfg, width, height)
+    g = _to_tiles(grad_planes, cfg, width, height)
+    counts = torch.clamp_max(tile_count.to(torch.int64), cfg.max_per_tile)
+    # heavy tiles first, as in blend_planes
+    order = torch.argsort(-res[:, 8].amax(1), stable=True)
+    for i in range(0, n_tiles, cfg.tile_batch):
+        ids = order[i:i + cfg.tile_batch]
+        bwd_tiles_batch(feats_pad, d_pad, ids, tile_start[ids].to(torch.int64),
+                        counts[ids], tiles_x, res[ids], g[ids], cfg, bg, width,
+                        height, fx, fy)
+    return d_pad[:-1]
 
 
 def planes_to_images(planes: torch.Tensor) -> dict:

@@ -1,0 +1,107 @@
+"""The port's training CLI end to end on the CPU, against gsjax's.
+
+`gsjax_torch.train.main` trains 12 steps on a 96x64, 6-view rendered COLMAP
+scene: densify at 5 and 10, regularisation (median depth, depth-normal
+loss) from 7, multi-view lambdas 0. gsjax's CLI (`train.py`) runs the same
+flags and seed for its first 5 steps (the schedule up to the first densify
+does not depend on the iteration count; the 5 steps keep its compile time
+small). Both draw the same views from the seeded `random` stream, so:
+
+  - per-step losses up to the first densify agree within rtol 1e-5
+    (float32 in both packages; read: 3e-7);
+  - the first densify's counts (n_alive, n_cloned, n_split, n_pruned) are
+    equal. After it the packages draw different position samples, so the
+    runs part.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gsjax_torch.train as ttrain
+from gsjax_torch.data.synth import write_rendered_colmap
+from gsjax_torch.model.io import load_checkpoint, load_ply
+
+torch.set_num_threads(1)
+FLAGS = ["--densify_from_iter", "4", "--densification_interval", "5",
+         "--densify_until_iter", "11", "--regularization_from_iter", "7",
+         "--lambda_multi_view_ncc", "0", "--lambda_multi_view_geo", "0", "--seed", "0"]
+COUNTS = ("n_alive", "n_cloned", "n_split", "n_pruned")
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train")
+    scene = str(root / "scene")
+    write_rendered_colmap(scene, n_images=6, width=96, height=64, device="cpu")
+    ports = []
+    out = str(root / "port")
+    trainer = ttrain.main(["-s", scene, "-m", out, "--iterations", "12",
+                           "--test_iterations", "12", "--save_iterations", "12",
+                           "--checkpoint_iterations", "12", "--device", "cpu", *FLAGS],
+                          on_step=lambda t, m: ports.append(m))
+
+    import train as jtrain_cli
+    from gsjax.train import loop as jloop
+
+    gsj = []
+    step = jloop.Trainer.step
+
+    def recording_step(self):
+        m = step(self)
+        gsj.append({"loss": float(m["loss"]), "densify": m.get("densify")})
+        return m
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jloop.Trainer, "step", recording_step)
+    mp.setattr(sys, "argv", ["train.py", "-s", scene, "-m", str(root / "gsjax"),
+                             "--iterations", "5", "--test_iterations", "5",
+                             "--save_iterations", "5", "--checkpoint_iterations", "5",
+                             "--ip", "", *FLAGS])
+    try:
+        jtrain_cli.main()
+    finally:
+        mp.undo()
+    return out, trainer, ports, gsj
+
+
+def test_outputs_written(runs):
+    out, trainer, ports, _ = runs
+    assert trainer.iteration == 12 and len(ports) == 12
+    assert all(np.isfinite(m["loss"]) for m in ports)
+    ply = os.path.join(out, "point_cloud", "iteration_12", "point_cloud.ply")
+    params, aux = load_ply(ply, device="cpu")
+    assert int(aux.alive.sum()) == int(trainer.aux.alive.sum())
+    _, aux2, adam, it, _ = load_checkpoint(os.path.join(out, "chkpnt12.npz"), device="cpu")
+    assert it == 12 and adam.count == 12
+    assert torch.equal(aux2.alive, trainer.aux.alive)
+    assert "iterations=12" in open(os.path.join(out, "cfg_args")).read()
+    cams = json.load(open(os.path.join(out, "cameras.json")))
+    assert [c["img_name"] for c in cams] == [f"img_{i:03d}" for i in range(6)]
+    mv = [json.loads(line) for line in open(os.path.join(out, "multi_view.json"))]
+    assert len(mv) == 6 and all("nearest_name" in r for r in mv)
+    assert os.path.exists(os.path.join(out, "input.ply"))
+
+
+def test_losses_and_densify_match_gsjax(runs):
+    _, _, ports, gsj = runs
+    assert len(gsj) == 5
+    np.testing.assert_allclose([m["loss"] for m in ports[:5]], [m["loss"] for m in gsj],
+                               rtol=1e-5)
+    want = gsj[4]["densify"]
+    got = ports[4]["densify"]
+    assert {k: got[k] for k in COUNTS} == {k: int(want[k]) for k in COUNTS}
+    assert ports[9].get("densify") is not None, "the second densify ran"
+    assert all(m.get("densify") is None for i, m in enumerate(ports) if i not in (4, 9))
+
+
+def test_unported_options_raise(tmp_path):
+    for extra in (["--ip", "127.0.0.1"], ["--n_devices", "2"], ["--profile_iter", "3"],
+                  ["--use_decoupled_appearance", "1"]):
+        with pytest.raises(NotImplementedError):
+            ttrain.main(["-s", str(tmp_path / "none"), "-m", str(tmp_path / "out"),
+                         "--device", "cpu", *extra])
