@@ -17,16 +17,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
   slice       the render CLI (`gsjax_torch.render.main`) on a 4-view
               1920x1080 COLMAP scene and a 100k-gaussian PLY made from a
               seed; B1's launches must equal the number of views;
+  parity_sample  kernels B3 / B5 (the point query and its VJP) against their
+              twins in `ops/sample_ref.py`, on a reference arc view's
+              depth-valid pixels queried in its neighbour, at 640x360 / 20k
+              and 1920x1080 / 100k;
+  parity_warp kernel B6 (the NCC's neighbour-tap sampler) against its twin
+              on the 49 taps of each pixel's homography at 1920x1080;
   train       the training CLI (`gsjax_torch.train.main`) for 40 steps on a
               6-view 1920x1080 scene initialised from 100k points, densify
-              at 20 and 30, depth-normal regularisation from 21; B2's
-              launches must equal the steps;
+              at 20 and 30, regularisation from 21 with gsjax's default
+              multi-view lambdas; B2's launches must equal the steps, B3's,
+              B5's and B6's the steps that ran the multi-view losses;
   timing      CUDA-event times of preprocess, binning, B1 and a whole
               `render()` at 1920x1080 / 100k, with B1's bound;
   timing_train  B2 with and without depth and its bound, bench.py's
               fwd+bwd loss as rays/s, a train step with regularisation on and
               off with its stage split and peak memory, and a profiler
-              reading of the device's busy share.
+              reading of the device's busy share;
+  timing_mv   B3, B5 and B6 against their bounds (B6 also against
+              `grid_sample`), `sample_depth` and `warp_patch_ncc` forward +
+              backward, and a train step with the multi-view losses, its peak
+              memory and idle share, at 1920x1080 / 100k.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
@@ -118,6 +129,34 @@ GAUSS_TOL, GAUSS_FRAC, GAUSS_MAX = 1e-4, 0.9999, 1e-3
 OPS_BWD_APPLY = 65
 OPS_BWD_MEDIAN = 38
 OPS_BWD_PIXEL = 40
+
+# B3 / B5 against their twins on the same pair lists and points. B3 is held to
+# B1's limits (MD_*, NCONTRIB_FRAC, DD_*): it marches and searches the median
+# as B1 does, at continuous coordinates. B5 is held per pair and column and
+# per gaussian to B2's limits (BWD_*, GAUSS_*), and its per-point d(px), d(py)
+# to the same, relative to each column's largest |twin| entry: both read the
+# same B3 rows and sum in other orders. Read on the card (H100, 640x360 / 20k
+# and 1080p / 100k, 0.20 M and 1.59 M queries): m_t within 1.25e-3 on every
+# point in range on both sides, in_range equal on all, n_contrib on
+# 99.9996%, dlogT/dt close on 99.97%; B5 every pair within 3.2e-6, every
+# gaussian within 1.9e-6 and every point within 1.2e-7 of scale.
+PT_TOL, PT_FRAC, PT_MAX = BWD_TOL, BWD_FRAC, BWD_MAX
+# B6 against its twin: the same fp32 formula (nvcc may contract a product and a
+# sum into one fma), so every sample, d/du and d/dv within 1e-5 absolute
+# (read: 1.2e-7, 9.3e-10 and 9.3e-10 on 101.6 M taps at 1080p).
+WARP_MAX = 1e-5
+
+# fp32 operations, counted from csrc/sample_fwd.cu and sample_bwd.cu as
+# OPS_* above: B3 charges OPS_ALPHA per marched (pair, point), OPS_POINT_APPLY
+# per applied one (T update, stop test, md_init), and the median search as
+# B1's; B5 charges OPS_ALPHA per pair before n_contrib of a point with a
+# non-zero cotangent, OPS_SBWD_APPLY per applied one (the median term, the
+# chain to 10 columns and one add per column for the sum over points) and
+# OPS_SBWD_POINT per point. B6: OPS_WARP per (tap, pixel).
+OPS_POINT_APPLY = 8
+OPS_SBWD_APPLY = 75
+OPS_SBWD_POINT = 10
+OPS_WARP = 30
 
 
 def emit(obj):
@@ -395,7 +434,6 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
     from gsjax_torch.config import dump_cfg_args
     from gsjax_torch.data.synth import write_rendered_colmap
     from gsjax_torch.model.io import save_ply
-    from gsjax_torch.ops.raster import render_cuda
 
     shutil.rmtree(WORK, ignore_errors=True)
     scene_dir = os.path.join(WORK, "scene")
@@ -429,15 +467,15 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
             "max_tile_count": out["max_tile_count"],
         })
 
-    render_cuda.blend_fwd.launches = render_cuda.blend_bwd.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     render_cli.main(["-m", model_dir, "--save_depth", "--device", str(dev)],
                     on_view=on_view)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = render_cuda.blend_fwd.launches
-    bwd_launches = render_cuda.blend_bwd.launches
+    counts = read_launches()
+    launches = counts.pop("blend_fwd")
 
     out_dir = os.path.join(model_dir, "train", "ours_30000")
     files = {d: sorted(os.listdir(os.path.join(out_dir, d)))
@@ -450,7 +488,7 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
     check(all(v == want for v in files.values()), f"PNG tree {files}")
     check(len(stats) == n_views, "not every view rendered")
     check(launches == n_views, f"blend_fwd launched {launches} times for {n_views} views")
-    check(bwd_launches == 0, f"blend_bwd launched {bwd_launches} times while serving")
+    check(not any(counts.values()), f"training kernels launched while serving: {counts}")
     for s in stats:
         check(s["finite"], f"view {s['view']} has non-finite output")
         check(s["shape"] == [height, width, 3], f"view {s['view']} shape {s['shape']}")
@@ -461,21 +499,40 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
     return launches
 
 
+def reset_launches():
+    from gsjax_torch.ops import sample_cuda, warp_sample
+    from gsjax_torch.ops.raster import render_cuda
+
+    for fn in (render_cuda.blend_fwd, render_cuda.blend_bwd, sample_cuda.sample_fwd,
+               sample_cuda.sample_bwd, warp_sample.warp_sample):
+        fn.launches = 0
+
+
+def read_launches():
+    from gsjax_torch.ops import sample_cuda, warp_sample
+    from gsjax_torch.ops.raster import render_cuda
+
+    return {fn.__name__: fn.launches
+            for fn in (render_cuda.blend_fwd, render_cuda.blend_bwd, sample_cuda.sample_fwd,
+                       sample_cuda.sample_bwd, warp_sample.warp_sample)}
+
+
 def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
-    """The training CLI at full width; returns {kernel: launches}.
+    """The training CLI at full width, with gsjax's default multi-view
+    lambdas; returns {kernel: launches}.
 
     The per-step loss moves with the view drawn (about 15% between the six
-    views), with the depth-normal term that enters at step 21 and with the
-    prune at each densify, so whether training lowers the loss is read on
-    fixed views: the photometric loss over all six training views, rendered
-    from the model at initialisation and after the last step."""
+    views), with the depth-normal and multi-view terms that enter at step 21
+    and with the prune at each densify, so whether training lowers the loss
+    is read on fixed views: the photometric loss over all six training
+    views, rendered from the model at initialisation and after the last
+    step."""
     import torch
 
     from gsjax_torch import train as train_cli
     from gsjax_torch.data.readers import load_scene
     from gsjax_torch.data.synth import write_rendered_colmap
     from gsjax_torch.model.io import load_ply
-    from gsjax_torch.ops.raster import render_cuda
     from gsjax_torch.train import losses
     from gsjax_torch.train.loop import Trainer
 
@@ -503,21 +560,23 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
     argv = ["-s", scene_dir, "-m", model_dir, "--iterations", str(steps),
             "--densify_from_iter", "10", "--densification_interval", "10",
             "--densify_until_iter", "31", "--regularization_from_iter", "21",
-            "--lambda_multi_view_ncc", "0", "--lambda_multi_view_geo", "0",
             "--save_iterations", str(steps), "--checkpoint_iterations", str(steps),
             "--test_iterations", str(steps), "--device", str(dev)]
     log = []
-    render_cuda.blend_fwd.launches = render_cuda.blend_bwd.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer = train_cli.main(argv, on_step=lambda t, m: log.append(
-        {"loss": m["loss"], "dn_loss": m["dn_loss"], "attempts": m["attempts"],
-         "pairs": m["num_live_pairs"], "max_tile_count": m["max_tile_count"],
-         "alive": int(t.aux.alive.sum()), "densify": m.get("densify")}))
+        {"loss": m["loss"], "dn_loss": m["dn_loss"], "ncc_loss": m["ncc_loss"],
+         "geo_loss": m["geo_loss"], "view": m["view"], "near": m["near"],
+         "mv_queries": m["mv_queries"], "mv_max_tile_count": m["mv_max_tile_count"],
+         "max_per_tile": m["max_per_tile"], "attempts": m["attempts"], "pairs": m["num_live_pairs"],
+         "max_tile_count": m["max_tile_count"], "alive": int(t.aux.alive.sum()),
+         "densify": m.get("densify")}))
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {"blend_fwd": render_cuda.blend_fwd.launches,
-                "blend_bwd": render_cuda.blend_bwd.launches}
+    launches = read_launches()
+    mv = [r for r in log if r["near"] is not None]
     ply = os.path.join(model_dir, "point_cloud", f"iteration_{steps}", "point_cloud.ply")
     _, aux = load_ply(ply, device=dev)
     step_losses = [r["loss"] for r in log]
@@ -530,6 +589,14 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
           "views_loss_before": loss_before, "views_loss_after": loss_after,
           "step_loss_first10": first, "step_loss_last10": last,
           "dn_loss_live_steps": sum(r["dn_loss"] > 0 for r in log),
+          "mv_steps": len(mv), "neighbours": [len(v.nearest_ids)
+                                              for v in trainer.scene.train_views],
+          "mv_max_tile_count": max((r["mv_max_tile_count"] for r in mv), default=0),
+          # neighbour lists longer than the cap are clamped, as in gsjax, and
+          # nothing retries them (gsjax's overflow check reads only the
+          # reference view)
+          "mv_steps_near_list_clamped": sum(r["mv_max_tile_count"] > r["max_per_tile"]
+                                            for r in mv),
           "densify": densified,
           "alive_final": int(trainer.aux.alive.sum()), "ply_alive": int(aux.alive.sum()),
           "max_per_tile": trainer.max_per_tile, "per_step": log})
@@ -539,6 +606,15 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
     check(launches["blend_fwd"] == sum(r["attempts"] for r in log),
           f"blend_fwd launched {launches['blend_fwd']} times")
     check(all(np.isfinite(x) for x in step_losses), "non-finite loss")
+    check(all(v.nearest_ids for v in trainer.scene.train_views), "a view has no neighbour")
+    check(len(mv) > 0, "no step ran the multi-view losses")
+    for r in mv:
+        check(np.isfinite(r["ncc_loss"]) and np.isfinite(r["geo_loss"])
+              and r["ncc_loss"] > 0 and r["geo_loss"] > 0,
+              f"multi-view losses {r['ncc_loss']}, {r['geo_loss']} on a multi-view step")
+    for name in ("sample_fwd", "sample_bwd", "warp_sample"):
+        check(launches[name] == len(mv),
+              f"{name} launched {launches[name]} times for {len(mv)} multi-view steps")
     check(loss_after < loss_before, f"loss did not fall: {loss_before} -> {loss_after}")
     check(len(densified) == 2, f"densify ran {len(densified)} times")
     check(int(aux.alive.sum()) == int(trainer.aux.alive.sum()), "PLY does not load back")
@@ -771,6 +847,331 @@ def phase_timing_train(dev, width=1920, height=1080, n=100_000):
     return out["b2_depth_ms"], bound
 
 
+def mv_scene(width, height, n, dev, ref=2, near=3, n_views=6):
+    """bench.py's gaussians seen from two neighbouring arc poses of the train
+    scene (fx = 0.9 width, as data/synth.py writes it): the reference view's
+    render (median depth, normal), both views' luma, and the reference's
+    depth-valid pixels backprojected to world points (the multi-view loss's
+    queries in the neighbour)."""
+    import torch
+
+    from gsjax_torch.core.transforms import focal2fov
+    from gsjax_torch.ops.raster import Camera, RasterConfig, render
+    from gsjax_torch.train.multiview import _invert_rigid
+
+    means, scales, quats, opac, shs = bench_gaussians(n)
+    fov = (focal2fov(0.9 * width, width), focal2fov(0.9 * width, height))
+    cams = [Camera.create(bench_pose(i, n_views)[0].T, bench_pose(i, n_views)[1], *fov,
+                          width, height, device=dev) for i in (ref, near)]
+    cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
+    args = [torch.as_tensor(a, device=dev) for a in (means, scales, quats, opac[:, 0])]
+    shs_t = torch.as_tensor(shs, device=dev)
+    outs = [render(*args, shs_t, c, cfg, torch.zeros(3, device=dev)) for c in cams]
+    gray = [(o["render"] * torch.tensor([0.299, 0.587, 0.114], device=dev)).sum(-1)
+            .contiguous() for o in outs]
+    md = outs[0]["median_depth"]
+    cam = cams[0]
+    xs = (torch.arange(width, device=dev) - cam.cx) / cam.fx
+    ys = (torch.arange(height, device=dev) - cam.cy) / cam.fy
+    pts_cam = torch.stack([md * xs[None, :], md * ys[:, None], md], -1)[md > 0]
+    inv = _invert_rigid(cam.world_view)
+    return {"args": args, "cams": cams, "cfg": cfg, "depth": md,
+            "normal": outs[0]["normal"], "gray": gray,
+            "points": pts_cam @ inv[:3, :3].T + inv[:3, 3]}
+
+
+def timed_once(fn):
+    """(result, CUDA-event ms) of one call of a plain-PyTorch twin."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def col_rel_err(k, t):
+    """Per-row largest error relative to each column's largest |t| entry."""
+    return ((k - t).abs() / t.abs().amax(0).clamp_min(1e-30)).amax(1)
+
+
+def phase_parity_sample(width, height, n, dev, scene=None):
+    """B3 and B5 against their twins on the same lists, points and rows;
+    returns (summary, query, B3 rows, seeded cotangent)."""
+    import torch
+
+    from gsjax_torch.ops import sample_cuda, sample_ref
+    from gsjax_torch.ops.sample import prepare_query
+
+    sc = scene or mv_scene(width, height, n, dev)
+    cfg = sc["cfg"]
+    qr = prepare_query(sc["points"], *sc["args"], sc["cams"][1], cfg)
+    lists = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts, qr.blocks)
+    rk = sample_cuda.sample_fwd(*lists, cfg)
+    rt, fwd_twin_ms = timed_once(lambda: sample_ref.sample_fwd_rows(*lists, cfg))
+    both = (rk[1] > 0) & (rt[1] > 0)
+    md_close = torch.isclose(rk[0], rt[0], atol=MD_ATOL, rtol=MD_RTOL)
+    dd_close = torch.isclose(rk[5][both], rt[5][both], rtol=DD_RTOL, atol=DD_ATOL)
+    fwd = {"points": int(qr.pts.shape[0]), "blocks": int(qr.blocks.shape[0]),
+           "pairs": qr.binning.num_live, "max_tile_count": qr.binning.max_tile_count,
+           "twin_fwd_ms": fwd_twin_ms, "finite": bool(torch.isfinite(rk).all()),
+           "in_range_frac": float((rk[1] > 0).float().mean()),
+           "in_range_equal_frac": float((rk[1] == rt[1]).float().mean()),
+           "m_t_close_frac": float(md_close.float().mean()),
+           "m_t_max_abs_err": float((rk[0] - rt[0])[both].abs().max()),
+           "n_contrib_equal_frac": float((rk[2] == rt[2]).float().mean()),
+           "md_init_close_frac": float(torch.isclose(rk[3], rt[3], atol=MD_ATOL,
+                                                     rtol=MD_RTOL).float().mean()),
+           "t_final_max_abs_err": float((rk[4] - rt[4]).abs().max()),
+           "dlogT_dt_close_frac": float(dd_close.float().mean())}
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    g = torch.randn(qr.pts.shape[0], generator=gen, device=dev)
+    dk, pk = sample_cuda.sample_bwd(*lists, rk, g, cfg)
+    (dt, pt), bwd_twin_ms = timed_once(lambda: sample_ref.sample_bwd_rows(*lists, rk, g, cfg))
+    err = col_rel_err(dk, dt)
+    n_g = sc["args"][0].shape[0]
+    gk = torch.zeros(n_g, 16, device=dev).index_add_(0, qr.binning.gauss_idx, dk)
+    gt = torch.zeros(n_g, 16, device=dev).index_add_(0, qr.binning.gauss_idx, dt)
+    touched = gt.abs().amax(1) > 0
+    gerr = col_rel_err(gk, gt)[touched]
+    perr = col_rel_err(pk, pt)
+    bwd = {"twin_bwd_ms": bwd_twin_ms,
+           "bwd_finite": bool(torch.isfinite(dk).all() and torch.isfinite(pk).all()),
+           "pair_max_err": float(err.max()),
+           "pair_close_frac": float((err <= BWD_TOL).double().mean()),
+           "gauss_max_err": float(gerr.max()),
+           "gauss_close_frac": float((gerr <= GAUSS_TOL).double().mean()),
+           "point_max_err": float(perr.max()),
+           "point_close_frac": float((perr <= PT_TOL).double().mean()),
+           "nonzero_cols": [int(c) for c in torch.nonzero(dt.abs().amax(0) > 0)[:, 0]]}
+    emit({"phase": "parity_sample", "width": width, "height": height, "gaussians": n,
+          **fwd, **bwd})
+    check(fwd["finite"] and bwd["bwd_finite"], "B3 / B5 output not finite")
+    check(fwd["m_t_close_frac"] >= MD_FRAC, f"B3 m_t close on {fwd['m_t_close_frac']}")
+    check(fwd["m_t_max_abs_err"] <= MD_MAX, f"B3 m_t max error {fwd['m_t_max_abs_err']}")
+    check(fwd["in_range_equal_frac"] >= MD_FRAC,
+          f"B3 in_range equal on {fwd['in_range_equal_frac']}")
+    check(fwd["md_init_close_frac"] >= MD_FRAC, f"B3 md_init close on {fwd['md_init_close_frac']}")
+    check(fwd["n_contrib_equal_frac"] >= NCONTRIB_FRAC,
+          f"B3 n_contrib equal on {fwd['n_contrib_equal_frac']}")
+    check(fwd["dlogT_dt_close_frac"] >= DD_FRAC,
+          f"B3 dlogT/dt close on {fwd['dlogT_dt_close_frac']}")
+    check(fwd["in_range_frac"] > 0.5, f"only {fwd['in_range_frac']} of the queries in range")
+    check(bwd["nonzero_cols"] == [0, 1, 2, 3, 4, 5, 9, 10, 11, 12],
+          f"twin gradient columns {bwd['nonzero_cols']}")
+    for key, frac, mx in (("pair", BWD_FRAC, BWD_MAX), ("gauss", GAUSS_FRAC, GAUSS_MAX),
+                          ("point", PT_FRAC, PT_MAX)):
+        check(bwd[f"{key}_close_frac"] >= frac, f"B5 {key}s close on {bwd[f'{key}_close_frac']}")
+        check(bwd[f"{key}_max_err"] <= mx, f"B5 {key} max error {bwd[f'{key}_max_err']}")
+    return {**fwd, **bwd}, qr, rk, g
+
+
+def scene_taps(sc):
+    """Tap positions [49, H, W] of the reference view's homographies into the
+    neighbour (the NCC's, from the rendered depth and normal)."""
+    import torch
+
+    from gsjax_torch.ops.ncc import neighbour_taps
+    from gsjax_torch.train.multiview import _invert_rigid
+
+    ref, near = sc["cams"]
+    nrm = sc["normal"]
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    rel = near.world_view @ _invert_rigid(ref.world_view)
+    un, vn = neighbour_taps(sc["depth"], nrm, rel[:3, :3], rel[:3, 3],
+                            (ref.fx, ref.fy, ref.cx, ref.cy),
+                            (near.fx, near.fy, near.cx, near.cy))
+    return un.contiguous(), vn.contiguous()
+
+
+def phase_parity_warp(sc):
+    """B6 against its twin on the taps of a real homography per pixel."""
+    import torch
+
+    from gsjax_torch.ops import warp_sample as ws
+
+    un, vn = scene_taps(sc)
+    gray_n = sc["gray"][1]
+    pk = ws.warp_sample(gray_n, un, vn)
+    pt, plain = timed_once(lambda: ws.bilinear_ref(gray_n, un, vn))
+    hn, wn = gray_n.shape
+    inside = (un >= 0) & (un <= wn - 1) & (vn >= 0) & (vn <= hn - 1)
+    err = [float((pk[i] - pt[i]).abs().max()) for i in range(3)]
+    # taps of pixels with a depth (the others have no plane to warp by)
+    out = {"taps": int(un.numel()),
+           "inside_frac": float(inside[:, sc["depth"] > 0].float().mean()),
+           "twin_ms": plain, "value_max_abs_err": err[0], "du_max_abs_err": err[1],
+           "dv_max_abs_err": err[2], "finite": bool(torch.isfinite(pk).all())}
+    emit({"phase": "parity_warp", "height": int(un.shape[1]), "width": int(un.shape[2]),
+          **out})
+    check(out["finite"], "B6 output not finite")
+    check(max(err) <= WARP_MAX, f"B6 max error {max(err)}")
+    check(out["inside_frac"] > 0.5, f"only {out['inside_frac']} of the taps in the image")
+    return out
+
+
+def point_interactions(qr, res, cfg):
+    """Per sorted point: the pairs its march tested (its tile's clamped list
+    up to n_contrib, or the whole list where T_final >= 1e-2 shows it never
+    stopped) and the pairs it applied (before n_contrib, passing the alpha
+    test, counted with the twin's own test)."""
+    import torch
+
+    from gsjax_torch.ops import sample_ref
+    from gsjax_torch.ops.raster import render_ref
+
+    b = qr.binning
+    feats_pad = torch.cat([qr.feats, qr.feats.new_zeros(1, 16)])
+    n_contrib = res[2].to(torch.int64)
+    applied = torch.zeros_like(n_contrib)
+    for ids, starts, counts in sample_ref._batches(b.tile_start, b.tile_count, qr.blocks, cfg):
+        idx, px, py, valid = sample_ref._block_points(qr.pts, qr.blocks, ids)
+        lim = torch.where(valid, n_contrib[idx], 0)
+        limit = lim.amax(1)
+        acc = torch.zeros_like(lim)
+        for base in range(0, int(limit.max()), cfg.chunk):
+            f, rel, vld = render_ref._gather_chunk(feats_pad, starts, limit, base, cfg.chunk)
+            _, passes, _, _ = render_ref._alpha_terms(f, px, py, cfg, vld)
+            acc += (passes & (rel[None, :, None] < lim[:, None, :])).sum(1)
+        applied[idx[valid]] = acc[valid]
+    tile = torch.repeat_interleave(qr.blocks[:, 0].to(torch.int64),
+                                   qr.blocks[:, 2].to(torch.int64))
+    count = b.tile_count.to(torch.int64).clamp_max(cfg.max_per_tile)[tile]
+    marched = torch.where(res[4] >= 1e-2, count, n_contrib)
+    return marched.to(torch.float64), applied.to(torch.float64)
+
+
+def roofline(nbytes, ops):
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = ops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def sample_bounds(qr, res, g, cfg):
+    """Least times the card needs for B3 and for B5 on this query: bytes
+    (each input read once, each output written once) against operations
+    (OPS_* above) for the interactions these inputs need."""
+    import torch
+
+    marched, applied = point_interactions(qr, res, cfg)
+    cand = (res[4] <= cfg.min_transmittance).to(torch.float64)
+    in_range = (res[1] > 0).to(torch.float64)
+    ops3 = float((marched * OPS_ALPHA + applied * OPS_POINT_APPLY
+                  + cand * applied * (OPS_PAIR_MEDIAN + MEDIAN_BRACKET * OPS_DEPTH)
+                  + in_range * applied * MEDIAN_NEWTON * (OPS_DEPTH + OPS_DERIV)).sum())
+    k, q = qr.feats.shape[0], qr.pts.shape[0]
+    lists = 2 * 4 * qr.binning.tile_count.numel() + 12 * qr.blocks.shape[0]
+    b3 = roofline(k * 64 + lists + q * 8 + 6 * q * 4, ops3)
+    live = in_range * (g != 0).to(torch.float64) * (res[5].abs() > 1e-20).to(torch.float64)
+    n_contrib = res[2].to(torch.float64)
+    ops5 = float((live * (n_contrib * OPS_ALPHA + applied * OPS_SBWD_APPLY)).sum()) \
+        + OPS_SBWD_POINT * q
+    b5 = roofline(2 * k * 64 + lists + q * 8 + 4 * q * 4 + q * 4 + q * 8, ops5)
+    inter = {"interactions_marched": float(marched.sum()),
+             "interactions_applied": float(applied.sum()),
+             "interactions_median": float((cand * applied).sum()),
+             "interactions_newton": float((in_range * applied).sum())}
+    return {**b3, **inter}, {**b5, "interactions_before_n_contrib": float(
+        (live * n_contrib).sum()), "interactions_applied": float((live * applied).sum())}
+
+
+def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
+    """B3, B5, B6 against their bounds, the multi-view ops forward + backward
+    and a train step with the multi-view losses; returns (ms, bounds)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gsjax_torch.model import gaussians as gm
+    from gsjax_torch.ops import sample_cuda
+    from gsjax_torch.ops import warp_sample as ws
+    from gsjax_torch.ops.ncc import warp_patch_ncc
+    from gsjax_torch.ops.sample import sample_depth
+    from gsjax_torch.train.multiview import _invert_rigid
+    from gsjax_torch.train.step import LossConfig, train_step
+
+    cfg = sc["cfg"]
+    ref, near = sc["cams"]
+    lists = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts, qr.blocks)
+    out = {"points": int(qr.pts.shape[0])}
+    out["b3_ms"] = event_ms(lambda: sample_cuda.sample_fwd(*lists, cfg))
+    out["b5_ms"] = event_ms(lambda: sample_cuda.sample_bwd(*lists, res, g, cfg))
+    b3_bound, b5_bound = sample_bounds(qr, res, g, cfg)
+
+    un, vn = scene_taps(sc)
+    gray_n = sc["gray"][1]
+    out["b6_ms"] = event_ms(lambda: ws.warp_sample(gray_n, un, vn))
+    hn, wn = gray_n.shape
+    grid = torch.stack([un / (wn - 1) * 2 - 1, vn / (hn - 1) * 2 - 1], -1) \
+        .reshape(1, -1, un.shape[2], 2)
+    out["grid_sample_ms"] = event_ms(lambda: F.grid_sample(
+        gray_n[None, None], grid, mode="bilinear", padding_mode="border", align_corners=True))
+    del grid
+    taps = un.numel()
+    b6_bound = roofline(5 * taps * 4 + hn * wn * 4, OPS_WARP * taps)
+
+    # the multi-view ops forward + backward, as the train step runs them
+    pts = sc["points"].clone().requires_grad_(True)
+    leaves = [a.clone().requires_grad_(True) for a in sc["args"]]
+    w = torch.randn(pts.shape[0], device=dev)
+
+    def sample_fwd_bwd():
+        r = sample_depth(pts, *leaves, near, cfg)
+        loss = torch.where(r["inside"], r["sampled_depth"] * w, 0.0).sum()
+        return torch.autograd.grad(loss, [pts, *leaves])
+
+    out["sample_depth_fwd_bwd_ms"] = event_ms(sample_fwd_bwd, reps=5)
+    depth = sc["depth"].clone().requires_grad_(True)
+    nrm = sc["normal"] / sc["normal"].norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    nrm = nrm.clone().requires_grad_(True)
+    rel = near.world_view @ _invert_rigid(ref.world_view)
+
+    def ncc_fwd_bwd():
+        cc, valid = warp_patch_ncc(depth, nrm, sc["gray"][0], gray_n, rel[:3, :3],
+                                   rel[:3, 3], (ref.fx, ref.fy, ref.cx, ref.cy),
+                                   (near.fx, near.fy, near.cx, near.cy))
+        return torch.autograd.grad(torch.where(valid, 1 - cc, 0.0).sum(), [depth, nrm])
+
+    out["warp_patch_ncc_fwd_bwd_ms"] = event_ms(ncc_fwd_bwd, reps=5)
+    del un, vn
+
+    # train steps with the multi-view losses (the step ends in a host read)
+    params, aux = bench_params(bench_gaussians(n), dev)
+    adam = gm.adam_init(params)
+    lrs = dict(xyz=1.6e-4, features_dc=0.0025, features_rest=0.0001, opacity=0.05,
+               scaling=0.005, rotation=0.001, sg_axis=0.002, sg_sharpness=0.095,
+               sg_color=0.00064)
+    gt = torch.as_tensor(bench_gt(n, width, height), device=dev)
+    bg = torch.zeros(3, device=dev)
+    mv = dict(near_cam=near, gray_r=sc["gray"][0], gray_n=gray_n)
+    step = lambda: train_step(params, aux, adam, ref, gt, bg, lrs, cfg,
+                              LossConfig(reg_on=True, mv_on=True), **mv)
+    metrics = step()[3]
+    out["step_mv_queries"] = metrics["mv_queries"]
+    out["step_ncc_loss"], out["step_geo_loss"] = metrics["ncc_loss"], metrics["geo_loss"]
+    out["train_step_mv_ms"] = event_ms(step, reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    out["train_step_mv_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    out["train_step_mv_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["profile"] = profile_step(step)
+    emit({"phase": "timing_mv", "width": width, "height": height, "gaussians": n, **out,
+          "b3_bound": b3_bound, "b5_bound": b5_bound, "b6_bound": b6_bound})
+    return out, {"sample_fwd": b3_bound, "sample_bwd": b5_bound, "warp_sample": b6_bound}
+
+
 def profile_step(step):
     """torch.profiler over one step: the device's busy time (the union of its
     kernels' intervals), the step's span on the host clock, the idle share,
@@ -817,8 +1218,6 @@ def main():
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 1
-    from gsjax_torch.ops.raster import render_cuda
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -836,10 +1235,25 @@ def main():
         bwd_err[rd], bwd_twin = phase_parity_bwd(1920, 1080, 100_000, dev, rd)
         if rd:
             bwd_twin_ms = bwd_twin
+    phase_parity_sample(640, 360, 20_000, dev)
+    scene = mv_scene(1920, 1080, 100_000, dev)
+    sample_err, qr, rows, cot = phase_parity_sample(1920, 1080, 100_000, dev, scene)
+    warp_err = phase_parity_warp(scene)
+    mv_ms, mv_bound = phase_timing_mv(dev, scene, qr, rows, cot)
+    del scene, qr, rows, cot
     serve_launches = phase_slice(dev)
     train_launches = phase_train(dev)
     kernel_ms, bound = phase_timing(dev, twin_ms)
     b2_ms, b2_bound = phase_timing_train(dev)
+
+    def entry(name, replaces, max_err, ms, plain_ms, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"gsjax_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": train_launches[name],
+                "launches_by_path": {"render": 0, "train": train_launches[name]},
+                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": mv_bound[name]["bound_ms"],
+                "bound_by": mv_bound[name]["bound_by"], "library_ms": library_ms}
+
     emit({"kernels": [
         {"name": "blend_fwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_fwd.cu",
          "replaces": "gsjax/ops/raster/render_pallas.py:644",
@@ -854,7 +1268,16 @@ def main():
          "launches_by_path": {"render": 0, "train": train_launches["blend_bwd"]},
          "max_abs_err": max(e["pair_max_err"] for e in bwd_err.values()),
          "ms": b2_ms, "plain_ms": bwd_twin_ms, "bound_ms": b2_bound["bound_ms"],
-         "bound_by": b2_bound["bound_by"], "library_ms": None}]})
+         "bound_by": b2_bound["bound_by"], "library_ms": None},
+        entry("sample_fwd", "gsjax/ops/raster/sample_pallas.py:79",
+              sample_err["m_t_max_abs_err"], mv_ms["b3_ms"], sample_err["twin_fwd_ms"]),
+        entry("sample_bwd", "gsjax/ops/raster/sample_pallas.py:240",
+              max(sample_err["pair_max_err"], sample_err["point_max_err"]),
+              mv_ms["b5_ms"], sample_err["twin_bwd_ms"]),
+        entry("warp_sample", "gsjax/ops/warp_sample.py:60",
+              max(warp_err[k] for k in ("value_max_abs_err", "du_max_abs_err",
+                                        "dv_max_abs_err")),
+              mv_ms["b6_ms"], warp_err["twin_ms"], mv_ms["grid_sample_ms"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

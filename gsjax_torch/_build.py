@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # kernel name -> (source under the package, C symbol, argtypes)
 KERNELS = {
@@ -47,6 +48,28 @@ KERNELS = {
         _F, _F,                        # fx, fy
         _I, _I,                        # max_per_tile, require_depth
         _F, _F,                        # alpha_clamp, alpha_min
+        _P,                            # cudaStream_t
+    ]),
+    "sample_fwd": ("csrc/sample_fwd.cu", "gsjax_sample_fwd", [
+        _P, _P, _P, _P, _P, _P,        # feats, tile_start, tile_count, pts,
+                                       # blocks, out
+        _I, _I, _I,                    # n_blocks, q, max_per_tile
+        _F, _F, _F, _F, _F,            # alpha_clamp, alpha_min, t_min,
+                                       # sample_range, min_transmittance
+        _P,                            # cudaStream_t
+    ]),
+    "sample_bwd": ("csrc/sample_bwd.cu", "gsjax_sample_bwd", [
+        _P, _P, _P, _P, _P, _P, _P,    # feats, tile_start, tile_count, pts,
+                                       # blocks, res, g
+        _P, _P,                        # d_feats, d_pts
+        _I, _I, _I,                    # n_blocks, q, max_per_tile
+        _F, _F,                        # alpha_clamp, alpha_min
+        _P,                            # cudaStream_t
+    ]),
+    "warp_sample": ("csrc/warp_sample.cu", "gsjax_warp_sample", [
+        _P, _I, _I,                    # image, height, width
+        _P, _P, _P,                    # u, v, out
+        _L,                            # n (taps x pixels)
         _P,                            # cudaStream_t
     ]),
 }

@@ -42,16 +42,11 @@
 #include <cuda_runtime.h>
 
 #include "blend_common.cuh"
+#include "median.cuh"
 
 namespace {
 
 using namespace blend;
-
-// render_pallas.py uses 7 iterations without the progress test below; on
-// dense scenes that leaves ~0.5% of pixels short of the root (bracket still
-// up to 0.3 wide), 12 with the test converge on every pixel measured.
-constexpr int kNewtonIters = 12;
-constexpr float kLogHalf = -0.69314718055994531f;
 
 struct Params {
   const float* feats;       // [K, 16] pair payload, tile-major, front to back
@@ -62,55 +57,6 @@ struct Params {
   int width, height, tiles_x, tile, max_per_tile, require_depth;
   float fx, fy, alpha_clamp, alpha_min, t_min, sample_range, min_transmittance;
 };
-
-// log T(ts[k]) of the half-gaussian-CDF model (render_pallas.py:_median_model)
-// over this pixel's applied pairs (index < my_n), for NPTS depths in one
-// sweep of the tile's list; with WANT_D also d(log T)/dt. `nmax` (the block's
-// largest my_n) bounds the staging and is uniform over the block.
-template <int NPTS, bool WANT_D>
-__device__ void model_sweep(const Params& p, Batch& s, int start, int nmax,
-                            int my_n, float px, float py, const float* ts,
-                            float* lt, float* dlt) {
-#pragma unroll
-  for (int k = 0; k < NPTS; ++k) {
-    lt[k] = 0.f;
-    dlt[k] = 0.f;
-  }
-  for (int b0 = 0; b0 < nmax; b0 += kBatch) {
-    __syncthreads();                    // the previous batch is consumed
-    const int n = min(kBatch, nmax - b0);
-    stage(p.feats, s, start, b0, n);
-    __syncthreads();
-    const int jn = min(n, my_n - b0);
-    for (int j = 0; j < jn; ++j) {
-      float alpha, expp, dx, dy;
-      if (!pair_alpha(p.alpha_clamp, p.alpha_min, s[j][0], s[j][1], px, py,
-                      alpha, expp, dx, dy))
-        continue;
-      const float4 q2 = s[j][2];
-      const float rsig = s[j][3].x;
-      const float t_peak = q2.y * dx + q2.z * dy + q2.w;
-      const float l1m = log1pf(-alpha);
-#pragma unroll
-      for (int k = 0; k < NPTS; ++k) {
-        const float delta = (ts[k] - t_peak) * rsig;
-        const float hg = rsig > 0.f ? expf(-0.5f * delta * delta) : 0.f;
-        const float om = fmaxf(1.f - alpha * hg, 1e-12f);
-        const float hl = 0.5f * logf(om);
-        const bool behind = ts[k] > t_peak;
-        lt[k] += behind ? l1m - hl : hl;
-        if (WANT_D) {
-          const float dlf = 0.5f * (alpha / om) * (-hg * delta * rsig);
-          dlt[k] += behind ? dlf : -dlf;
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float safe_den(float d) {
-  return fabsf(d) > 1e-20f ? d : 1e-20f;
-}
 
 __global__ void __launch_bounds__(kThreads)
 blend_fwd_kernel(const Params p) {
@@ -167,63 +113,12 @@ blend_fwd_kernel(const Params p) {
   const int n_contrib = last + 1;
 
   // --- median depth: safeguarded Newton on log T(t) = log 1/2 -------------
-  // (render_pallas.py:_median_search, the 5-sigma cull left out)
-  float m_t = 0.f, d_denom = 0.f;
-  bool in_range = false;
+  // (median.cuh; render_pallas.py:_median_search, the 5-sigma cull left out)
+  Median med{0.f, 0.f, false};
   if (p.require_depth) {
-    const bool cand = inside && T <= p.min_transmittance;
-    const int nmax = block_max(cand ? n_contrib : 0, &s_max);
-    if (nmax > 0) {
-      float lo = fmaxf(md_init - p.sample_range, 0.f);
-      float hi = fmaxf(md_init + p.sample_range, 0.f);
-      float ts[2] = {lo, hi}, lt[2], dl[2];
-      model_sweep<2, false>(p, s, start, nmax, cand ? n_contrib : 0, px, py,
-                            ts, lt, dl);
-      float t_lo = expf(lt[0]), t_hi = expf(lt[1]);
-      in_range = cand && t_lo >= 0.5f && t_hi <= 0.5f;
-      const int my_n = in_range ? n_contrib : 0;
-      const int nmax2 = block_max(my_n, &s_max);
-      if (nmax2 > 0) {
-        // the first iterate is the log-linear secant through the bracket
-        const float w0 = fminf(fmaxf(
-            (lt[0] - kLogHalf) / safe_den(lt[0] - lt[1]), 0.f), 1.f);
-        float t = lo + w0 * (hi - lo);
-        float last_step = hi - lo;
-        for (int it = 0; it < kNewtonIters; ++it) {
-          float l, d;
-          model_sweep<1, true>(p, s, start, nmax2, my_n, px, py, &t, &l, &d);
-          const float tv = expf(l);
-          const bool right = tv >= 0.5f;          // the root is at t or right
-          if (right) {
-            lo = t;
-            t_lo = tv;
-          } else {
-            hi = t;
-            t_hi = tv;
-          }
-          const bool ok = d < -1e-20f;
-          const float step = (l - kLogHalf) / (ok ? d : -1.f);
-          const float t_n = t - step;
-          // Newton only while it stays in the bracket and at least halves
-          // the previous step (rtsafe's progress test); else bisect
-          const bool newton = ok && t_n > lo && t_n < hi &&
-                              2.f * fabsf(step) <= fabsf(last_step);
-          last_step = newton ? step : 0.5f * (hi - lo);
-          t = newton ? t_n : 0.5f * (lo + hi);
-        }
-        const float w = fminf(fmaxf((t_lo - 0.5f) / safe_den(t_lo - t_hi),
-                                    0.f), 1.f);
-        float t_star = w * hi + (1.f - w) * lo;
-        // dlogT/dt at the root, which also buys a last Newton refinement
-        float l_star;
-        model_sweep<1, true>(p, s, start, nmax2, my_n, px, py, &t_star,
-                             &l_star, &d_denom);
-        const bool ok = d_denom < -1e-20f;
-        const float t_ref = t_star - (l_star - kLogHalf) / (ok ? d_denom : -1.f);
-        if (ok && t_ref > lo && t_ref < hi) t_star = t_ref;
-        if (in_range) m_t = t_star;
-      }
-    }
+    const Query q{p.feats, start, px, py, p.alpha_clamp, p.alpha_min};
+    med = median_search(q, s, &s_max, inside && T <= p.min_transmittance,
+                        n_contrib, md_init, p.sample_range);
   }
   if (!inside) return;
 
@@ -241,12 +136,12 @@ blend_fwd_kernel(const Params p) {
   // ray distance -> z depth (render_pallas.py:_ray_to_z)
   const float pnx = (px - (p.width - 1.f) * 0.5f) / p.fx;
   const float pny = (py - (p.height - 1.f) * 0.5f) / p.fy;
-  o[7 * hw] = m_t * rsqrtf(pnx * pnx + pny * pny + 1.f);
+  o[7 * hw] = med.m_t * rsqrtf(pnx * pnx + pny * pny + 1.f);
   o[8 * hw] = static_cast<float>(n_contrib);
   o[9 * hw] = md_init;
   o[10 * hw] = T;
-  o[11 * hw] = in_range ? 1.f : 0.f;
-  o[12 * hw] = in_range ? d_denom : 0.f;
+  o[11 * hw] = med.in_range ? 1.f : 0.f;
+  o[12 * hw] = med.in_range ? med.d_denom : 0.f;
   o[13 * hw] = 0.f;
   o[14 * hw] = 0.f;
   o[15 * hw] = 0.f;

@@ -40,6 +40,7 @@ class SceneView:
     nearest_ids: list = dataclasses.field(default_factory=list)
 
     _camera: Optional[Camera] = None
+    _gray: Optional[np.ndarray] = None
 
     @property
     def camera(self) -> Camera:
@@ -48,6 +49,15 @@ class SceneView:
                                          self.width, self.height,
                                          device=self.device)
         return self._camera
+
+    @property
+    def gray(self) -> np.ndarray:
+        """[H,W] luma of the unmasked image, for the NCC (scene/cameras.py:45)."""
+        if self._gray is None:
+            i = self.image
+            self._gray = (0.299 * i[..., 0] + 0.587 * i[..., 1]
+                          + 0.114 * i[..., 2]).astype(np.float32)
+        return self._gray
 
     @property
     def camera_center(self) -> np.ndarray:

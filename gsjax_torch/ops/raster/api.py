@@ -27,16 +27,21 @@ from gsjax_torch.ops.raster.preprocess import preprocess
 BACKENDS = ("auto", "cuda", "torch")
 
 
-def _blend(feats, binning, camera: Camera, cfg: RasterConfig, bg):
+def select(cfg: RasterConfig, device: torch.device, kernels, twins):
+    """The pair of functions `cfg.backend` runs on `device`: `twins` for
+    "torch", else `kernels` (wrappers that launch the kernels for CUDA
+    tensors and run the twins for CPU tensors); "cuda" needs CUDA tensors."""
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown raster backend {cfg.backend!r}; one of {BACKENDS}")
-    if cfg.backend == "cuda" and feats.device.type != "cuda":
-        raise ValueError("backend='cuda' needs CUDA tensors; got tensors on "
-                         f"{feats.device}")
-    if cfg.backend == "torch":
-        fwd, bwd = render_ref.blend_planes, render_ref.blend_bwd_planes
-    else:
-        fwd, bwd = render_cuda.blend_fwd, render_cuda.blend_bwd
+    if cfg.backend == "cuda" and device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs CUDA tensors; got tensors on {device}")
+    return twins if cfg.backend == "torch" else kernels
+
+
+def _blend(feats, binning, camera: Camera, cfg: RasterConfig, bg):
+    fwd, bwd = select(cfg, feats.device,
+                      (render_cuda.blend_fwd, render_cuda.blend_bwd),
+                      (render_ref.blend_planes, render_ref.blend_bwd_planes))
     return render_cuda.Blend.apply(feats, binning.tile_start, binning.tile_count,
                                    camera.width, camera.height, camera.fx,
                                    camera.fy, bg, cfg, fwd, bwd)

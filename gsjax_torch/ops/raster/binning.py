@@ -19,6 +19,11 @@ list is `gauss_idx[tile_start[t] : tile_start[t] + min(tile_count[t],
 max_per_tile)]`: the blend clamps each count at `max_per_tile` as gsjax's
 kernels do (binning.py:260-265). Row-band binning (the multi-device path)
 is left for the multi-GPU slice.
+
+`continuous_coords` (binning.py:73-78): the blend evaluates pairs at pixel
+centres, so the cull's box spans [tile*t, tile*t + t - 1]; the point queries
+(ops/sample.py) evaluate at continuous coordinates, which can sit in the
+strip past a tile's last pixel centre, so there the box runs to tile*t + t.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ class Binning:
 
 
 def bin_gaussians(prep: Preprocessed, cfg: RasterConfig, width: int,
-                  height: int) -> Binning:
+                  height: int, continuous_coords: bool = False) -> Binning:
     tiles_x, tiles_y = cfg.grid(width, height)
     num_tiles = tiles_x * tiles_y
     dev = prep.depth.device
@@ -68,7 +73,7 @@ def bin_gaussians(prep: Preprocessed, cfg: RasterConfig, width: int,
     op = prep.opacity[g]
     txp = (tx * cfg.tile).to(torch.float32)
     typ = (ty * cfg.tile).to(torch.float32)
-    box_hi = cfg.tile - 1
+    box_hi = cfg.tile if continuous_coords else cfg.tile - 1
     ax = gx - (txp + box_hi)
     bx = gx - txp
     ay = gy - (typ + box_hi)

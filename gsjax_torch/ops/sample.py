@@ -1,0 +1,156 @@
+"""Point queries: differentiable cross-view median-depth sampling.
+
+Port of `gsjax/ops/sample.py` (`sample_depth`, `evaluate_sdf`; the
+reference's `sampleDepthCUDA` / `evaluateSDFCUDA`, sample_forward.cu
+:171-700). Query points are projected into the view, sorted by their
+pixel's tile with a stable sort and cut into blocks of at most 256 points of
+one tile; each point marches its tile's depth-sorted pair list and finds its
+median ray distance through `sample_cuda.SampleDepth` (kernels B3 / B5 for
+CUDA tensors, their twins in `sample_ref` for CPU tensors or backend
+"torch"). The binning is the blend's with `continuous_coords=True`, since
+points sit at continuous coordinates.
+
+Gradients flow to the gaussians (through the pair payload and preprocess)
+and to the query points: B5 gives d(px), d(py), and torch autograd carries
+them back through the projection, as it carries the ray-to-z factor.
+Points outside the view's frustum are not queried: their values are exact
+zeros with zero gradient.
+
+`integrate` (the transmittance at each point's own depth, TPU kernel B4)
+serves meshing and comes with that slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gsjax_torch.ops import sample_cuda, sample_ref
+from gsjax_torch.ops.raster import render_ref
+from gsjax_torch.ops.raster.api import select
+from gsjax_torch.ops.raster.binning import Binning, bin_gaussians
+from gsjax_torch.ops.raster.camera import Camera
+from gsjax_torch.ops.raster.config import RasterConfig
+from gsjax_torch.ops.raster.preprocess import preprocess
+
+
+def _project_points(points, camera: Camera, cfg: RasterConfig):
+    """Project query points into the view. Returns (px, py, t_ray, inside0)."""
+    wv = camera.world_view
+    pv = points @ wv[:3, :3].T + wv[:3, 3]
+    in_front = pv[:, 2] > cfg.near_plane
+    full = camera.full_proj
+    ph = points @ full[:3, :3].T + full[:3, 3]
+    pw = points @ full[3, :3] + full[3, 3]
+    pp = ph / (pw[:, None] + 1e-7)
+    px = ((pp[:, 0] + 1) * camera.width - 1) * 0.5
+    py = ((pp[:, 1] + 1) * camera.height - 1) * 0.5
+    inside0 = in_front & (px >= 0) & (px <= camera.width - 1) & \
+        (py >= 0) & (py <= camera.height - 1)
+    return px, py, torch.linalg.norm(pv, dim=-1), inside0
+
+
+def _point_tile(px, py, camera: Camera, cfg: RasterConfig):
+    tiles_x, tiles_y = cfg.grid(camera.width, camera.height)
+    tx = torch.clamp(torch.floor(px / cfg.tile), 0, tiles_x - 1).to(torch.int64)
+    ty = torch.clamp(torch.floor(py / cfg.tile), 0, tiles_y - 1).to(torch.int64)
+    return ty * tiles_x + tx
+
+
+def point_blocks(sorted_tile: torch.Tensor, num_tiles: int) -> torch.Tensor:
+    """[NB, 3] int32 block table of points sorted by tile: (tile, first point,
+    count), each tile's points cut into blocks of at most BLOCK."""
+    dev = sorted_tile.device
+    per_tile = torch.bincount(sorted_tile, minlength=num_tiles)
+    n_blk = (per_tile + sample_ref.BLOCK - 1) // sample_ref.BLOCK
+    tile = torch.repeat_interleave(torch.arange(num_tiles, device=dev), n_blk)
+    j = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(n_blk, 0) - n_blk)[tile]
+    first = (torch.cumsum(per_tile, 0) - per_tile)[tile] + j * sample_ref.BLOCK
+    count = torch.clamp_max(per_tile[tile] - j * sample_ref.BLOCK, sample_ref.BLOCK)
+    return torch.stack([tile, first, count], 1).to(torch.int32).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class Query:
+    """What the kernels of a point query read, and the projection."""
+    feats: torch.Tensor        # [K,16] pair payload of the view, binning order
+    binning: Binning           # its lists (continuous_coords)
+    pts: torch.Tensor          # [Q',2] (px, py) of the points inside, sorted by tile
+    blocks: torch.Tensor       # [NB,3] int32 block table (point_blocks)
+    sorted_q: torch.Tensor     # [Q'] index of each sorted point in the query
+    px: torch.Tensor           # [Q] projected pixel coordinates
+    py: torch.Tensor
+    t_ray: torch.Tensor        # [Q] the point's own ray distance
+    inside0: torch.Tensor      # [Q] in front of the near plane and on screen
+
+
+def prepare_query(points, means3d, scales, rotations, opacities, camera: Camera,
+                  cfg: RasterConfig, alive=None) -> Query:
+    """Preprocess and bin the gaussians (SH/SG degree 0: colour is unused),
+    project the points and sort the ones inside the frustum by tile."""
+    cfg0 = dataclasses.replace(cfg, sh_degree=0, sg_degree=0)
+    shs = means3d.new_zeros(means3d.shape[0], 1, 3)
+    prep = preprocess(means3d, scales, rotations, opacities, shs, None, None, None,
+                      camera, cfg0, alive)
+    binning = bin_gaussians(prep, cfg0, camera.width, camera.height,
+                            continuous_coords=True)
+    px, py, t_ray, inside0 = _project_points(points, camera, cfg)
+    tiles_x, tiles_y = cfg.grid(camera.width, camera.height)
+    sel = torch.nonzero(inside0).squeeze(1)
+    sorted_tile, order = torch.sort(_point_tile(px.detach()[sel], py.detach()[sel],
+                                                camera, cfg), stable=True)
+    sorted_q = sel[order]
+    return Query(feats=render_ref.prepare_pairs(prep, binning), binning=binning,
+                 pts=torch.stack([px[sorted_q], py[sorted_q]], -1).contiguous(),
+                 blocks=point_blocks(sorted_tile, tiles_x * tiles_y),
+                 sorted_q=sorted_q, px=px, py=py, t_ray=t_ray, inside0=inside0)
+
+
+def _query(points, means3d, scales, rotations, opacities, camera: Camera,
+           cfg: RasterConfig, alive):
+    """Median ray distance of each point -> (m_t [Q], in_range [Q], Query)."""
+    qr = prepare_query(points, means3d, scales, rotations, opacities, camera, cfg, alive)
+    fwd, bwd = select(cfg, qr.feats.device,
+                      (sample_cuda.sample_fwd, sample_cuda.sample_bwd),
+                      (sample_ref.sample_fwd_rows, sample_ref.sample_bwd_rows))
+    res = sample_cuda.SampleDepth.apply(qr.feats, qr.pts, qr.binning.tile_start,
+                                        qr.binning.tile_count, qr.blocks, cfg, fwd, bwd)
+    q = points.shape[0]
+    m_t = res.new_zeros(q).index_copy(0, qr.sorted_q, res[0])
+    in_range = torch.zeros(q, dtype=torch.bool, device=res.device)
+    in_range[qr.sorted_q] = res[1].detach() > 0
+    return m_t, in_range, qr
+
+
+def sample_depth(points: torch.Tensor, means3d, scales, rotations, opacities,
+                 camera: Camera, cfg: RasterConfig, alive=None) -> dict:
+    """Differentiable cross-view median-depth sampling.
+
+    Args:
+      points: [Q,3] world-space query points (gradients flow into them).
+      means3d/scales/rotations/opacities: gaussian parameters (scales and
+        opacities post-activation, 3D-filtered; raw quaternions).
+
+    Returns dict(point_cam [Q,3] in the camera frame, sampled_depth [Q]
+    z-depth, inside [Q] bool, max_tile_count: the view's largest tile list,
+    a Python int; lists are clamped at `cfg.max_per_tile`)."""
+    md, in_r, qr = _query(points, means3d, scales, rotations, opacities, camera, cfg,
+                          alive)
+    pnx = (qr.px - (camera.width - 1) / 2.0) / camera.fx
+    pny = (qr.py - (camera.height - 1) / 2.0) / camera.fy
+    rln = torch.rsqrt(pnx * pnx + pny * pny + 1.0)
+    depth = md * rln
+    point_cam = torch.stack([pnx * depth, pny * depth, depth], -1)
+    return dict(point_cam=point_cam, sampled_depth=depth, inside=in_r & qr.inside0,
+                max_tile_count=qr.binning.max_tile_count)
+
+
+def evaluate_sdf(points: torch.Tensor, means3d, scales, rotations, opacities,
+                 camera: Camera, cfg: RasterConfig, alive=None) -> dict:
+    """Single-view SDF: the median ray distance at the point's pixel minus
+    the point's own ray distance (evaluateSDFCUDA). Returns dict(sdf [Q],
+    depth [Q] median ray distance, inside [Q])."""
+    md, in_r, qr = _query(points, means3d, scales, rotations, opacities, camera, cfg,
+                          alive)
+    return dict(sdf=md - qr.t_ray, depth=md, inside=in_r & qr.inside0)

@@ -13,9 +13,13 @@ watermark bump and the loss-free overflow retry stay: no step trains on a
 truncated list. The gaussian capacity grows as gsjax's does, since
 densification writes new gaussians into free slots.
 
+With regularisation on, a view with neighbours draws one of them exactly
+where gsjax does (loop.py:388-393) and the step adds the multi-view losses;
+the luma frames are cached on the device beside the gt frames.
+
 Not ported (each raises when asked for): sharding and multi-host, the SIBR
 viewer server, the NaN probe, the debug mosaics, TensorBoard, the profiler
-trace, the decoupled appearance models and the multi-view losses.
+trace and the decoupled appearance models.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ class Trainer:
     iteration: int = 0
     generator: torch.Generator | None = None
     random_background: bool = False
-    # device-resident gt frames, LRU bounded in bytes, keyed by image_name
+    # device-resident gt and luma frames, LRU bounded in bytes
     gt_cache_bytes: int = 512 * 1024 * 1024
     _gt_cache: dict = dataclasses.field(default_factory=dict)
 
@@ -133,22 +137,36 @@ class Trainer:
         fill = 1.0 if self.white_background else 0.0
         return torch.full((3,), fill, device=self.device)
 
+    def _cached(self, key, make):
+        """The device frame under `key`, made by `make()` on a miss; the
+        cache evicts least recently used frames beyond gt_cache_bytes."""
+        cached = self._gt_cache.pop(key, None)        # pop + reinsert = LRU
+        if cached is None:
+            cached = make()
+            held = sum(t.numel() * t.element_size() for t in self._gt_cache.values())
+            need = cached.numel() * cached.element_size()
+            while self._gt_cache and held + need > self.gt_cache_bytes:
+                old = self._gt_cache.pop(next(iter(self._gt_cache)))
+                held -= old.numel() * old.element_size()
+        self._gt_cache[key] = cached
+        return cached
+
     def gt_for(self, view):
         """Masked / bg-composited gt frame on the device, LRU-cached (masked
         scenes compose with the static background, as the reference)."""
-        key = view.image_name
-        cached = self._gt_cache.pop(key, None)        # pop + reinsert = LRU
-        if cached is None:
-            cached = torch.as_tensor(view.image, device=self.device)
-            if view.mask is not None:
-                m = torch.as_tensor((view.mask > 0.5).astype(np.float32),
-                                    device=self.device)[..., None]
-                cached = cached * m + self.bg()[None, None, :] * (1 - m)
-            max_n = max(1, self.gt_cache_bytes // max(cached.numel() * 4, 1))
-            while len(self._gt_cache) >= max_n:
-                self._gt_cache.pop(next(iter(self._gt_cache)))
-        self._gt_cache[key] = cached
-        return cached
+        def make():
+            img = torch.as_tensor(view.image, device=self.device)
+            if view.mask is None:
+                return img
+            m = torch.as_tensor((view.mask > 0.5).astype(np.float32),
+                                device=self.device)[..., None]
+            return img * m + self.bg()[None, None, :] * (1 - m)
+        return self._cached((view.image_name, "rgb"), make)
+
+    def gray_for(self, view):
+        """Luma frame of the unmasked image on the device (the NCC's input)."""
+        return self._cached((view.image_name, "gray"),
+                            lambda: torch.as_tensor(view.gray, device=self.device))
 
     def monitor_capacity(self, metrics):
         """Raise max_per_tile near its watermark (gsjax loop.py:329-332) and
@@ -173,11 +191,21 @@ class Trainer:
 
         view = random.choice(self.scene.train_views)
         reg_on = it >= o.regularization_from_iter
-        mv_on = bool(reg_on and view.nearest_ids and (
-            o.lambda_multi_view_ncc > 0 or o.lambda_multi_view_geo > 0))
+        near = None
+        if reg_on and view.nearest_ids and (
+                o.lambda_multi_view_ncc > 0 or o.lambda_multi_view_geo > 0):
+            near = self.scene.train_views[random.choice(view.nearest_ids)]
         lcfg = LossConfig(lambda_dssim=o.lambda_dssim,
                           lambda_depth_normal=o.lambda_depth_normal,
-                          reg_on=reg_on, mv_on=mv_on)
+                          lambda_mv_ncc=o.lambda_multi_view_ncc,
+                          lambda_mv_geo=o.lambda_multi_view_geo,
+                          reg_on=reg_on, mv_on=near is not None,
+                          pixel_noise_th=o.multi_view_pixel_noise_th,
+                          patch_size=o.multi_view_patch_size)
+        mv_args = {}
+        if near is not None:
+            mv_args = dict(near_cam=near.camera, gray_r=self.gray_for(view),
+                           gray_n=self.gray_for(near))
         if self.random_background:
             bg = torch.rand(3, generator=self.generator, device=self.device)
         else:
@@ -189,7 +217,7 @@ class Trainer:
         for attempt in range(1, 5):
             self.params, self.aux, self.adam, metrics = train_step(
                 self.params, self.aux, self.adam, view.camera, self.gt_for(view),
-                bg, self.lrs(), self.raster_cfg(require_depth=reg_on), lcfg)
+                bg, self.lrs(), self.raster_cfg(require_depth=reg_on), lcfg, **mv_args)
             if not metrics["overflowed"]:
                 break
             self.monitor_capacity(metrics)
@@ -197,6 +225,9 @@ class Trainer:
             raise RuntimeError(f"iteration {it}: tile lists still exceed "
                                f"max_per_tile={self.max_per_tile} after retries")
         metrics["attempts"] = attempt
+        metrics["max_per_tile"] = self.max_per_tile    # the cap this step ran with
+        metrics["view"] = view.uid
+        metrics["near"] = near.uid if near is not None else None
         if not np.isfinite(metrics["loss"]):
             raise FloatingPointError(
                 f"non-finite loss at iteration {it} (view {view.image_name})")

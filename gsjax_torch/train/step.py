@@ -5,8 +5,10 @@ assembly at :169-191). The gradient is torch autograd through the losses,
 the blend (`render_cuda.Blend`: B2 on the card) and preprocess. Adam and
 the densification statistics update the model in place.
 
-The multi-view (PGSR NCC / geometric) losses and the decoupled appearance
-models are later slices: asking for them raises.
+Once regularisation is on and the caller gives a neighbour view, the PGSR
+multi-view losses (`train.multiview`: the point-query kernels B3 / B5 and
+the NCC sampler B6 on the card) join the loss. The decoupled appearance
+models are a later slice: asking for them raises.
 """
 
 from __future__ import annotations
@@ -19,24 +21,32 @@ from gsjax_torch.model import gaussians as gm
 from gsjax_torch.ops.raster import render
 from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.ops.raster.config import RasterConfig
-from gsjax_torch.train import losses
+from gsjax_torch.train import losses, multiview
 
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    """Loss weights (OptimizationParams, arguments/__init__.py:106-118). The
-    multi-view weights and patch settings come with the multi-view slice."""
+    """Loss weights (OptimizationParams, arguments/__init__.py:106-118)."""
     lambda_dssim: float = 0.2
     lambda_depth_normal: float = 0.05
+    lambda_mv_ncc: float = 0.6
+    lambda_mv_geo: float = 0.02
     reg_on: bool = False          # iteration >= regularization_from_iter
-    mv_on: bool = False           # multi-view losses asked for (not ported)
+    mv_on: bool = False           # a neighbour view is given
+    pixel_noise_th: float = 1.0
+    patch_size: int = 3
     appearance: str = "no"        # no | gs | pgsr | gof (only "no" ported)
 
 
 def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamState,
                camera: Camera, gt_image: torch.Tensor, bg: torch.Tensor,
-               lrs: dict[str, float], cfg: RasterConfig, loss_cfg: LossConfig):
+               lrs: dict[str, float], cfg: RasterConfig, loss_cfg: LossConfig,
+               near_cam: Camera | None = None, gray_r: torch.Tensor | None = None,
+               gray_n: torch.Tensor | None = None):
     """One optimisation step. Returns (params, aux, adam, metrics).
+
+    With `loss_cfg.mv_on`, `near_cam` is the neighbour view's camera and
+    `gray_r` / `gray_n` the [H,W] luma frames of the two views.
 
     `params` and `adam` are updated in place (the same objects come back);
     `aux` is replaced. When the frame's largest tile list exceeds
@@ -44,11 +54,6 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
     then stops after the forward, changes nothing and returns
     metrics["overflowed"] = True, so the caller can raise the cap and retry
     the same view (gsjax's loss-free overflow retry)."""
-    if loss_cfg.mv_on:
-        raise NotImplementedError(
-            "the multi-view (PGSR NCC / geometric) losses come with the "
-            "regularisation slice of gsjax_torch; set --lambda_multi_view_ncc 0 "
-            "--lambda_multi_view_geo 0")
     if loss_cfg.appearance != "no":
         raise NotImplementedError(
             f"appearance model {loss_cfg.appearance!r} is not ported to "
@@ -74,7 +79,17 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
         dnormal, valid = losses.depth_to_normal(out["median_depth"], camera.fx,
                                                 camera.fy, camera.cx, camera.cy)
         dn_loss = losses.depth_normal_loss(out["normal"], dnormal, valid)
-    total = rgb_loss + loss_cfg.lambda_depth_normal * dn_loss
+    ncc_loss = geo_loss = torch.zeros((), device=img.device)
+    mv = dict(mv_queries=0, mv_max_tile_count=0)
+    if (loss_cfg.reg_on and loss_cfg.mv_on and cfg.require_depth
+            and (loss_cfg.lambda_mv_ncc > 0 or loss_cfg.lambda_mv_geo > 0)):
+        ncc_loss, geo_loss, mv["mv_queries"], mv["mv_max_tile_count"] = \
+            multiview.patchmatch_losses(
+                out["median_depth"], out["normal"], params.xyz, scales,
+                params.rotation, opac, aux.alive, camera, near_cam, gray_r, gray_n,
+                cfg, loss_cfg.pixel_noise_th, loss_cfg.patch_size)
+    total = (rgb_loss + loss_cfg.lambda_depth_normal * dn_loss
+             + loss_cfg.lambda_mv_ncc * ncc_loss + loss_cfg.lambda_mv_geo * geo_loss)
 
     leaves = [getattr(params, k) for k in gm.PARAM_FIELDS]
     *g_leaves, g2d = torch.autograd.grad(total, leaves + [tap], allow_unused=True)
@@ -94,6 +109,10 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
         aux = dataclasses.replace(aux, max_radii=torch.maximum(
             aux.max_radii, torch.where(vis, out["radii"], torch.zeros_like(out["radii"]))))
         gm.adam_update(params, grads, adam, lrs)
-        loss, l1v, ssv, dnv = torch.stack([total, ll1, ssim_val, dn_loss]).tolist()
+        loss, l1v, ssv, dnv, nccv, geov = torch.stack(
+            [total, ll1, ssim_val, dn_loss, ncc_loss, geo_loss]).tolist()
+    # ncc_win_rej: gsjax's count of taps lost to its TPU sampler's window;
+    # the port samples every tap
     return params, aux, adam, dict(counts, overflowed=False, loss=loss, l1=l1v,
-                                   ssim=ssv, dn_loss=dnv)
+                                   ssim=ssv, dn_loss=dnv, ncc_loss=nccv, geo_loss=geov,
+                                   ncc_win_rej=0, **mv)

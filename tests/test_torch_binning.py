@@ -3,7 +3,8 @@
 Each tile's list of gaussian ids must equal gsjax's in order (gsjax's
 128-aligned padding slots dropped), and `tile_count` / `max_tile_count`
 must be equal — including a tile that overflows `max_per_tile`, whose list
-both clamp at the cap.
+both clamp at the cap — with the blend's cull box and with the point
+queries' (`continuous_coords`, whose box runs to the tile's far edge).
 """
 
 import dataclasses
@@ -38,16 +39,20 @@ def _scene(name):
     return g, look_at_camera(96, 64), dict(max_per_tile=256, sh_degree=3)
 
 
-@pytest.fixture(scope="module", params=["small", "wide", "overflow"])
+@pytest.fixture(scope="module", params=[("small", False), ("wide", False),
+                                        ("overflow", False), ("small", True),
+                                        ("wide", True)],
+                ids=["small", "wide", "overflow", "small_continuous", "wide_continuous"])
 def binned(request):
-    g, cam, kw = _scene(request.param)
+    name, continuous = request.param
+    g, cam, kw = _scene(name)
     jcfg = JConfig(pair_capacity=1 << 14, **kw)
     prep = jpreprocess(*map(jnp.asarray, g), None, None, None, cam, jcfg, None)
     tprep = TPrep(**{f.name: torch.as_tensor(np.array(getattr(prep, f.name)))
                      for f in dataclasses.fields(TPrep)})
-    jb = jbin(prep, jcfg, cam.width, cam.height)
-    tb = tbin(tprep, TConfig(**kw), cam.width, cam.height)
-    return request.param, jcfg, jb, tb
+    jb = jbin(prep, jcfg, cam.width, cam.height, continuous_coords=continuous)
+    tb = tbin(tprep, TConfig(**kw), cam.width, cam.height, continuous_coords=continuous)
+    return name, jcfg, jb, tb
 
 
 def test_tile_lists_match(binned):

@@ -36,7 +36,9 @@ def test_import_pulls_in_no_jax():
     code = ("import gsjax_torch, gsjax_torch.render, gsjax_torch.ops.raster, "
             "gsjax_torch.model.io, gsjax_torch.data.readers, gsjax_torch.data.synth, "
             "gsjax_torch.ops.knn, gsjax_torch.utils.schedules, gsjax_torch.train, "
-            "gsjax_torch.train.losses, gsjax_torch.train.step, gsjax_torch.train.loop; "
+            "gsjax_torch.train.losses, gsjax_torch.train.step, gsjax_torch.train.loop, "
+            "gsjax_torch.ops.sample, gsjax_torch.ops.ncc, gsjax_torch.ops.warp_sample, "
+            "gsjax_torch.train.multiview; "
             "import sys; assert not any(m == 'jax' or m.startswith(('jax.', 'gsjax.')) "
             "or m == 'gsjax' for m in sys.modules), sorted(sys.modules)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

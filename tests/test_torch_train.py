@@ -12,10 +12,19 @@ small). Both draw the same views from the seeded `random` stream, so:
   - the first densify's counts (n_alive, n_cloned, n_split, n_pruned) are
     equal. After it the packages draw different position samples, so the
     runs part.
+
+A second port run keeps gsjax's default multi-view lambdas (0.6 / 0.02) and
+starts from a checkpoint of the scene's own gaussians, so the median depth
+is live from the first step (a model grown from the sparse points has no
+pixel with alpha >= 0.55 for hundreds of steps): from step 7 every step
+whose view has neighbours adds the PGSR losses, which must be finite and
+non-zero, and its (view, neighbour) sequence must be gsjax's draw rule
+(gsjax/train/loop.py:388-393) replayed on the seeded `random` stream.
 """
 
 import json
 import os
+import random
 import sys
 
 import numpy as np
@@ -24,7 +33,8 @@ import torch
 
 import gsjax_torch.train as ttrain
 from gsjax_torch.data.synth import write_rendered_colmap
-from gsjax_torch.model.io import load_checkpoint, load_ply
+from gsjax_torch.model.gaussians import adam_init, params_from_numpy
+from gsjax_torch.model.io import load_checkpoint, load_ply, save_checkpoint
 
 torch.set_num_threads(1)
 FLAGS = ["--densify_from_iter", "4", "--densification_interval", "5",
@@ -97,6 +107,52 @@ def test_losses_and_densify_match_gsjax(runs):
     assert {k: got[k] for k in COUNTS} == {k: int(want[k]) for k in COUNTS}
     assert ports[9].get("densify") is not None, "the second densify ran"
     assert all(m.get("densify") is None for i, m in enumerate(ports) if i not in (4, 9))
+
+
+@pytest.fixture(scope="module")
+def mv_run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_mv")
+    scene = str(root / "scene")
+    means, scales, quats, opac, shs = write_rendered_colmap(
+        scene, n_images=6, width=96, height=64, device="cpu")
+    n, cap = len(means), 512
+    pad = lambda x, fill=0.0: np.concatenate(
+        [x, np.full((cap - n,) + x.shape[1:], fill, np.float32)]).astype(np.float32)
+    params = dict(xyz=pad(means), features_dc=pad(shs[:, :1]), features_rest=pad(shs[:, 1:]),
+                  opacity=pad(np.log(opac / (1 - opac))), scaling=pad(np.log(scales)),
+                  rotation=pad(quats), sg_axis=pad(np.zeros((n, 1, 3))),
+                  sg_sharpness=pad(np.zeros((n, 1))), sg_color=pad(np.zeros((n, 1, 3))))
+    params["rotation"][n:, 0] = 1.0
+    aux = dict(alive=np.arange(cap) < n, filter_3d=np.zeros(cap),
+               grad_accum=np.zeros(cap), grad_accum_abs=np.zeros(cap),
+               denom=np.zeros(cap), max_radii=np.zeros(cap, np.int32))
+    p, a = params_from_numpy(params, aux, "cpu")
+    ckpt = str(root / "start.npz")
+    save_checkpoint(ckpt, p, a, adam_init(p), 0)
+    steps = []
+    trainer = ttrain.main(["-s", scene, "-m", str(root / "port"), "--iterations", "12",
+                           "--device", "cpu", "--start_checkpoint", ckpt, *FLAGS[:8],
+                           "--seed", "0"],
+                          on_step=lambda t, m: steps.append(m))
+    return trainer, steps
+
+
+def test_multiview_steps_train_and_draw_as_gsjax(mv_run):
+    trainer, steps = mv_run
+    views = trainer.scene.train_views
+    assert all(v.nearest_ids for v in views), "every arc view has neighbours"
+    random.seed(0)
+    for it, m in enumerate(steps, start=1):
+        view = random.choice(views)
+        near = random.choice(view.nearest_ids) if it >= 7 else None
+        assert (m["view"], m["near"]) == (view.uid, near), it
+        if near is None:
+            assert m["ncc_loss"] == m["geo_loss"] == 0.0
+        else:
+            assert np.isfinite([m["ncc_loss"], m["geo_loss"]]).all()
+            assert m["ncc_loss"] > 0 and m["geo_loss"] > 0, it
+            assert m["mv_queries"] > 0 and m["mv_max_tile_count"] > 0
+    assert len(steps) == 12 and all(np.isfinite(m["loss"]) for m in steps)
 
 
 def test_unported_options_raise(tmp_path):
