@@ -37,7 +37,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
   timing_mv   B3, B5 and B6 against their bounds (B6 also against
               `grid_sample`), `sample_depth` and `warp_patch_ncc` forward +
               backward, and a train step with the multi-view losses, its peak
-              memory and idle share, at 1920x1080 / 100k.
+              memory and idle share, at 1920x1080 / 100k;
+  parity_integrate  kernel B4 (the point integrate, `sample_fwd.cu`'s second
+              mode) against its twin `sample_ref.integrate_rows` on the tetra
+              points of a sphere model (`sphere_gaussians`) in a ring view,
+              at 640x360 / 20k gaussians (0.30 M points) and 1920x1080 / 100k
+              (1.5 M points);
+  timing_mesh B4 against its bound and its twin at 1920x1080 / 100k, with B3
+              on the same points beside it;
+  mesh        both meshing CLIs (`gsjax_torch.mesh_extract_tetrahedra`,
+              `gsjax_torch.mesh_extract`) on an 8-view 1920x1080 ring scene of
+              a 20k-gaussian sphere PLY: B4's launches must equal
+              views x (1 + 10 binary-search steps) x chunks, B1's the views of
+              the TSDF route, and both `recon_post.ply` lie on the unit
+              sphere; the stage split and peak memory of each route.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
@@ -157,6 +170,28 @@ OPS_POINT_APPLY = 8
 OPS_SBWD_APPLY = 75
 OPS_SBWD_POINT = 10
 OPS_WARP = 30
+
+
+# B4 against its twin on the same view payload and points. gsjax holds its two
+# integrate paths to 5e-4 in alpha (tests/test_sample_ncc.py:157-162); the
+# kernel carries T multiplicatively pair by pair, the twin sums log(1 - alpha)
+# in 256-pair chunks, and both sum the same half-gaussian-CDF log factors.
+# T(point) is held within INT_TOL on >= INT_FRAC of the points and within
+# gsjax's 5e-4 on >= FLIP_FRAC. A point whose alpha test (alpha >= 1/255) or
+# stop (T(1 - alpha) < 1e-4) flips between the two evaluation orders moves by
+# that one pair's factor, at most its alpha (~1/255 at the test's edge):
+# every point is held within INT_MAX. Read on the card (H100, 0.29 M points at
+# 640x360 / 20k and 1.43 M at 1080p / 100k): every point within 4.5e-4 and
+# 3.9e-4, within 1e-4 on 99.9996% and 99.99993%, n_contrib equal on 100% and
+# 99.9995%.
+INT_TOL, INT_FRAC, INT_GSJAX, INT_MAX = 1e-4, 0.9999, 5e-4, 5e-3
+# The meshes of a 20k-gaussian sphere (1-sigma tangent radius 0.023) lie on
+# the unit sphere: median | |v| - 1 | of each recon_post.ply below MESH_RADIUS
+# (read 0.0058 for the tetra route and 0.0061 for the TSDF route: the tangent
+# discs sag outside the sphere away from their centres).
+MESH_RADIUS = 0.01
+MESH_CHUNK = 1 << 20      # points per integrate call (evaluate_alpha_cull)
+MESH_STEPS = 10           # binary-search steps of the tetra route
 
 
 def emit(obj):
@@ -499,22 +534,21 @@ def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
     return launches
 
 
-def reset_launches():
+def _wrappers():
     from gsjax_torch.ops import sample_cuda, warp_sample
     from gsjax_torch.ops.raster import render_cuda
 
-    for fn in (render_cuda.blend_fwd, render_cuda.blend_bwd, sample_cuda.sample_fwd,
-               sample_cuda.sample_bwd, warp_sample.warp_sample):
+    return (render_cuda.blend_fwd, render_cuda.blend_bwd, sample_cuda.sample_fwd,
+            sample_cuda.integrate_fwd, sample_cuda.sample_bwd, warp_sample.warp_sample)
+
+
+def reset_launches():
+    for fn in _wrappers():
         fn.launches = 0
 
 
 def read_launches():
-    from gsjax_torch.ops import sample_cuda, warp_sample
-    from gsjax_torch.ops.raster import render_cuda
-
-    return {fn.__name__: fn.launches
-            for fn in (render_cuda.blend_fwd, render_cuda.blend_bwd, sample_cuda.sample_fwd,
-                       sample_cuda.sample_bwd, warp_sample.warp_sample)}
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
@@ -1172,6 +1206,185 @@ def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
     return out, {"sample_fwd": b3_bound, "sample_bwd": b5_bound, "warp_sample": b6_bound}
 
 
+def sphere_query(width, height, n, dev, view=0, n_views=8):
+    """The tetra points of an n-gaussian sphere model (`sphere_gaussians`,
+    the meshing route's input) queried in ring view `view` of `n_views` (fx =
+    0.9 width, as data/synth.py writes the scene): the view's prepared pairs
+    and points, the points' ray distances and the config."""
+    import torch
+
+    from gsjax_torch.core.transforms import focal2fov
+    from gsjax_torch.data.synth import ring_pose, sphere_gaussians
+    from gsjax_torch.mesh.extract import get_tetra_points
+    from gsjax_torch.model import gaussians as gm
+    from gsjax_torch.ops.raster import Camera, RasterConfig
+    from gsjax_torch.ops.sample import prepare_points, prepare_view
+
+    params, aux = bench_params(sphere_gaussians(n, seed=0), dev)
+    pts, _ = get_tetra_points(params, aux)
+    r_w2c, tvec = ring_pose(view, n_views)
+    cam = Camera.create(r_w2c.T, tvec, focal2fov(0.9 * width, width),
+                        focal2fov(0.9 * width, height), width, height, device=dev)
+    cfg = RasterConfig(require_depth=True, max_per_tile=1 << 12)
+    with torch.no_grad():
+        scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
+        vp = prepare_view(params.xyz, scales, params.rotation, opac, cam, cfg, aux.alive)
+        qr = prepare_points(vp, pts, cam, cfg)
+    return qr, qr.t_ray[qr.sorted_q].contiguous(), cfg
+
+
+def phase_parity_integrate(width, height, n, dev):
+    """B4 against its twin on the same view payload and points; returns
+    (summary, (query, ray distances, config, B4 rows))."""
+    import torch
+
+    from gsjax_torch.ops import sample_cuda, sample_ref
+
+    qr, t_eval, cfg = sphere_query(width, height, n, dev)
+    args = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts, t_eval,
+            qr.blocks, cfg)
+    rk = sample_cuda.integrate_fwd(*args)
+    rt, twin_ms = timed_once(lambda: sample_ref.integrate_rows(*args))
+    err = (rk[0] - rt[0]).abs()
+    out = {"points": int(qr.pts.shape[0]), "tetra_points": int(qr.px.shape[0]),
+           "blocks": int(qr.blocks.shape[0]), "pairs": qr.binning.num_live,
+           "max_tile_count": qr.binning.max_tile_count, "twin_ms": twin_ms,
+           "finite": bool(torch.isfinite(rk).all()),
+           "covered_all": bool((rk[1] == 1).all()),
+           "T_max_abs_err": float(err.max()),
+           "T_close_frac": float((err <= INT_TOL).double().mean()),
+           "T_gsjax_close_frac": float((err <= INT_GSJAX).double().mean()),
+           "n_contrib_equal_frac": float((rk[2] == rt[2]).double().mean()),
+           "t_final_max_abs_err": float((rk[4] - rt[4]).abs().max()),
+           "alpha_gt_half_frac": float((rk[0] < 0.5).double().mean())}
+    emit({"phase": "parity_integrate", "width": width, "height": height, "gaussians": n,
+          **out})
+    check(out["finite"], "B4 output not finite")
+    check(out["covered_all"], "B4 left points uncovered")
+    check(out["T_close_frac"] >= INT_FRAC, f"B4 T close on {out['T_close_frac']}")
+    check(out["T_gsjax_close_frac"] >= FLIP_FRAC,
+          f"B4 T within {INT_GSJAX} on {out['T_gsjax_close_frac']}")
+    check(out["T_max_abs_err"] <= INT_MAX, f"B4 T max error {out['T_max_abs_err']}")
+    check(out["n_contrib_equal_frac"] >= NCONTRIB_FRAC,
+          f"B4 n_contrib equal on {out['n_contrib_equal_frac']}")
+    check(0.01 < out["alpha_gt_half_frac"] < 0.99,
+          f"alpha > 0.5 on {out['alpha_gt_half_frac']} of the points: no surface between")
+    return out, (qr, t_eval, cfg, rk)
+
+
+def phase_timing_mesh(width, height, qr, t_eval, cfg, res):
+    """B4 against its bound at the parity phase's full size, with B3 on the
+    same points; returns (B4 ms, bound)."""
+    from gsjax_torch.ops import sample_cuda
+
+    lists = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts)
+    out = {"points": int(qr.pts.shape[0]),
+           "b4_ms": event_ms(lambda: sample_cuda.integrate_fwd(*lists, t_eval, qr.blocks,
+                                                               cfg)),
+           "b3_same_points_ms": event_ms(lambda: sample_cuda.sample_fwd(*lists, qr.blocks,
+                                                                        cfg))}
+    marched, applied = point_interactions(qr, res, cfg)
+    ops = float((marched * OPS_ALPHA + applied * (OPS_POINT_APPLY + OPS_PAIR_MEDIAN
+                                                  + OPS_DEPTH)).sum())
+    k, q = qr.feats.shape[0], qr.pts.shape[0]
+    lists_bytes = 2 * 4 * qr.binning.tile_count.numel() + 12 * qr.blocks.shape[0]
+    bound = {**roofline(k * 64 + lists_bytes + q * 12 + 5 * q * 4, ops),
+             "interactions_marched": float(marched.sum()),
+             "interactions_applied": float(applied.sum())}
+    emit({"phase": "timing_mesh", "width": width, "height": height, **out,
+          "b4_bound": bound})
+    return out["b4_ms"], bound
+
+
+def _read_mesh(path):
+    from gsjax_torch.data.ply import read_ply
+
+    v = read_ply(path)
+    return np.stack([v["x"], v["y"], v["z"]], 1), v["__faces__"]
+
+
+def phase_mesh(dev, n_views=8, width=1920, height=1080, n=20_000, voxel=0.01):
+    """Both meshing CLIs on a seeded sphere scene; returns {kernel: launches}
+    over both routes."""
+    import torch
+
+    from gsjax_torch import mesh_extract as tsdf_cli
+    from gsjax_torch import mesh_extract_tetrahedra as tetra_cli
+    from gsjax_torch.config import dump_cfg_args
+    from gsjax_torch.data.synth import ring_pose, sphere_gaussians, write_rendered_colmap
+    from gsjax_torch.model.io import save_ply
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    scene_dir = os.path.join(WORK, "mesh_scene")
+    model_dir = os.path.join(WORK, "mesh_model")
+    t0 = time.perf_counter()
+    g = sphere_gaussians(n, seed=0)
+    save_ply(os.path.join(model_dir, "point_cloud", "iteration_30000", "point_cloud.ply"),
+             *bench_params(g, dev))
+    write_rendered_colmap(scene_dir, n_images=n_views, width=width, height=height,
+                          gaussians=g, pose_fn=ring_pose, max_per_tile=1 << 12, device=dev)
+    dump_cfg_args(model_dir, Namespace(
+        sh_degree=3, sg_degree=0, source_path=scene_dir, model_path=model_dir,
+        images="images", masks="", resolution=1, white_background=False,
+        eval=False, kernel_size=0.0))
+    setup_s = time.perf_counter() - t0
+
+    base = ["-s", scene_dir, "-m", model_dir, "--device", str(dev)]
+    routes = {}
+    total = {}
+    for route, cli, argv in (("tetrahedra", tetra_cli, base),
+                             ("tsdf", tsdf_cli, base + ["--voxel_size", str(voxel)])):
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        meshes = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = read_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        verts, faces = _read_mesh(os.path.join(model_dir, "recon_post.ply"))
+        radius = np.abs(np.linalg.norm(verts, axis=1) - 1.0)
+        routes[route] = {
+            "cli_s": cli_s, "seconds": meshes["seconds"], "launches": launches,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "post_vertices": int(len(verts)), "post_faces": int(len(faces)),
+            "raw_faces": int(len(meshes["raw"][1])),
+            "finite": bool(np.isfinite(verts).all()),
+            "faces_in_range": bool(len(faces) and faces.min() >= 0
+                                   and faces.max() < len(verts)),
+            "radius_err_median": float(np.median(radius)) if len(verts) else None,
+            "radius_err_p99": float(np.quantile(radius, 0.99)) if len(verts) else None,
+            **({"counts": meshes["counts"]} if "counts" in meshes else
+               {"grid": list(meshes["grid"]), "grid_voxels": int(np.prod(meshes["grid"])),
+                "voxel_size": meshes["voxel_size"]})}
+        del meshes
+    c = routes["tetrahedra"]["counts"]
+    chunks = lambda m: -(-m // MESH_CHUNK)
+    want_b4 = n_views * (chunks(c["points"]) + MESH_STEPS * chunks(c["edges"]))
+    emit({"phase": "mesh", "views": n_views, "width": width, "height": height,
+          "gaussians": n, "setup_s": setup_s, "b4_launches_expected": want_b4, **routes})
+    files = sorted(f for f in os.listdir(model_dir) if f.endswith(".ply"))
+    check(files == ["recon.ply", "recon_init.ply", "recon_post.ply"], f"mesh files {files}")
+    tet, tsdf = routes["tetrahedra"]["launches"], routes["tsdf"]["launches"]
+    check(tet["integrate_fwd"] == want_b4,
+          f"integrate_fwd launched {tet['integrate_fwd']} times, want {want_b4}")
+    check(tsdf["blend_fwd"] == n_views,
+          f"blend_fwd launched {tsdf['blend_fwd']} times for {n_views} views")
+    others = {k: v for k, v in total.items() if k not in ("integrate_fwd", "blend_fwd")}
+    check(not any(others.values()), f"other kernels launched while meshing: {others}")
+    check(tet["blend_fwd"] == 0 and tsdf["integrate_fwd"] == 0,
+          f"routes crossed: {tet['blend_fwd']} B1 / {tsdf['integrate_fwd']} B4")
+    for route, r in routes.items():
+        check(r["post_faces"] > 1000 and r["finite"] and r["faces_in_range"],
+              f"{route} mesh: {r['post_faces']} faces, finite {r['finite']}")
+        check(r["radius_err_median"] < MESH_RADIUS,
+              f"{route} mesh off the sphere: median | |v| - 1 | {r['radius_err_median']}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    return total
+
+
 def profile_step(step):
     """torch.profiler over one step: the device's busy time (the union of its
     kernels' intervals), the step's span on the host clock, the idle share,
@@ -1241,6 +1454,11 @@ def main():
     warp_err = phase_parity_warp(scene)
     mv_ms, mv_bound = phase_timing_mv(dev, scene, qr, rows, cot)
     del scene, qr, rows, cot
+    phase_parity_integrate(640, 360, 20_000, dev)
+    int_err, int_query = phase_parity_integrate(1920, 1080, 100_000, dev)
+    b4_ms, b4_bound = phase_timing_mesh(1920, 1080, *int_query)
+    del int_query
+    mesh_launches = phase_mesh(dev)
     serve_launches = phase_slice(dev)
     train_launches = phase_train(dev)
     kernel_ms, bound = phase_timing(dev, twin_ms)
@@ -1249,7 +1467,8 @@ def main():
     def entry(name, replaces, max_err, ms, plain_ms, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"gsjax_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": train_launches[name],
-                "launches_by_path": {"render": 0, "train": train_launches[name]},
+                "launches_by_path": {"render": 0, "train": train_launches[name],
+                                     "mesh": mesh_launches[name]},
                 "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": mv_bound[name]["bound_ms"],
                 "bound_by": mv_bound[name]["bound_by"], "library_ms": library_ms}
@@ -1258,19 +1477,29 @@ def main():
         {"name": "blend_fwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_fwd.cu",
          "replaces": "gsjax/ops/raster/render_pallas.py:644",
          "launches": train_launches["blend_fwd"],
-         "launches_by_path": {"render": serve_launches, "train": train_launches["blend_fwd"]},
+         "launches_by_path": {"render": serve_launches, "train": train_launches["blend_fwd"],
+                              "mesh": mesh_launches["blend_fwd"]},
          "max_abs_err": max(full_err["color_max_abs_err"], full_err["alpha_max_abs_err"]),
          "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": bound["bound_ms"],
          "bound_by": bound["bound_by"], "library_ms": None},
         {"name": "blend_bwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_bwd.cu",
          "replaces": "gsjax/ops/raster/render_pallas.py:806",
          "launches": train_launches["blend_bwd"],
-         "launches_by_path": {"render": 0, "train": train_launches["blend_bwd"]},
+         "launches_by_path": {"render": 0, "train": train_launches["blend_bwd"],
+                              "mesh": mesh_launches["blend_bwd"]},
          "max_abs_err": max(e["pair_max_err"] for e in bwd_err.values()),
          "ms": b2_ms, "plain_ms": bwd_twin_ms, "bound_ms": b2_bound["bound_ms"],
          "bound_by": b2_bound["bound_by"], "library_ms": None},
         entry("sample_fwd", "gsjax/ops/raster/sample_pallas.py:79",
               sample_err["m_t_max_abs_err"], mv_ms["b3_ms"], sample_err["twin_fwd_ms"]),
+        {"name": "integrate_fwd", "route": "cuda", "source": "gsjax_torch/csrc/sample_fwd.cu",
+         "replaces": "gsjax/ops/raster/sample_pallas.py:79 (integrate mode, :154-159)",
+         "launches": mesh_launches["integrate_fwd"],
+         "launches_by_path": {"render": 0, "train": train_launches["integrate_fwd"],
+                              "mesh": mesh_launches["integrate_fwd"]},
+         "max_abs_err": int_err["T_max_abs_err"], "ms": b4_ms, "plain_ms": int_err["twin_ms"],
+         "bound_ms": b4_bound["bound_ms"], "bound_by": b4_bound["bound_by"],
+         "library_ms": None},
         entry("sample_bwd", "gsjax/ops/raster/sample_pallas.py:240",
               max(sample_err["pair_max_err"], sample_err["point_max_err"]),
               mv_ms["b5_ms"], sample_err["twin_bwd_ms"]),

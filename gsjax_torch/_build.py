@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source under `csrc/` is compiled with `nvcc` for Hopper (`sm_90a`) into
-a shared library with a plain C interface and loaded with `ctypes`. The
+a shared library with a plain C interface and loaded with `ctypes`; a kernel
+is one C symbol of its source's library (`sample_fwd.cu` exports two). The
 build goes into `build/gsjax_torch/` at the repository root at first use;
 the library's file name carries a hash of its source, the shared headers
 under `csrc/` and the flags, so an edited source is rebuilt and a stale
@@ -30,7 +31,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 
-# kernel name -> (source under the package, C symbol, argtypes)
+# kernel name -> (source under the package, C symbol, argtypes); kernels of
+# one source share its library
 KERNELS = {
     "blend_fwd": ("csrc/blend_fwd.cu", "gsjax_blend_fwd", [
         _P, _P, _P, _P, _P,            # feats, tile_start, tile_count, bg, out
@@ -56,6 +58,13 @@ KERNELS = {
         _I, _I, _I,                    # n_blocks, q, max_per_tile
         _F, _F, _F, _F, _F,            # alpha_clamp, alpha_min, t_min,
                                        # sample_range, min_transmittance
+        _P,                            # cudaStream_t
+    ]),
+    "integrate_fwd": ("csrc/sample_fwd.cu", "gsjax_integrate_fwd", [
+        _P, _P, _P, _P, _P, _P, _P,    # feats, tile_start, tile_count, pts,
+                                       # t_eval, blocks, out
+        _I, _I, _I,                    # n_blocks, q, max_per_tile
+        _F, _F, _F,                    # alpha_clamp, alpha_min, t_min
         _P,                            # cudaStream_t
     ]),
     "sample_bwd": ("csrc/sample_bwd.cu", "gsjax_sample_bwd", [
@@ -89,16 +98,17 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel `name`: one per source, named after it."""
     src = _PKG / KERNELS[name][0]
     headers = sorted(src.parent.glob("*.cuh"))    # shared by the sources
     h = hashlib.sha256(b"".join(p.read_bytes() for p in [src, *headers])
                        + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for one kernel unless its library exists; returns
-    (Popen, tmp path, final path, log path) or None."""
+    """Start nvcc for kernel `name`'s source unless its library exists;
+    returns (Popen, tmp path, final path, log path) or None."""
     so = library_path(name)
     if so.exists():
         return None
@@ -112,11 +122,12 @@ def _start(name: str):
 
 
 def build_all(names=None) -> dict[str, str]:
-    """Compile every kernel whose library is missing, one nvcc per source,
-    all started together. Returns {name: compiler log} for what was built;
-    raises if any build fails."""
+    """Compile every library of `names` (default: all kernels) that is
+    missing, one nvcc per source, all started together. Returns {source
+    stem: compiler log} for what was built; raises if any build fails."""
     names = list(KERNELS) if names is None else list(names)
-    jobs = {n: j for n in names if (j := _start(n)) is not None}
+    per_source = {Path(KERNELS[n][0]).stem: n for n in names}
+    jobs = {s: j for s, n in per_source.items() if (j := _start(n)) is not None}
     logs, failed = {}, []
     for n, (proc, tmp, so, log) in jobs.items():
         rc = proc.wait()

@@ -1,5 +1,6 @@
 // The median-depth search shared by the forward blend (blend_fwd.cu, B1) and
-// the point query (sample_fwd.cu, B3), from render_pallas.py:_median_search
+// the point query (sample_fwd.cu, B3; its model term also serves the point
+// integrate, B4), from render_pallas.py:_median_search
 // (the 5-sigma chunk cull left out): the root of log T(t) = log 1/2 of the
 // half-gaussian-CDF transmittance model over one thread's applied pairs,
 // found by safeguarded Newton, with dlogT/dt at the root (what a backward
@@ -29,10 +30,32 @@ struct Query {
   float alpha_clamp, alpha_min;
 };
 
-// log T(ts[k]) of the half-gaussian-CDF model (render_pallas.py:_median_model)
-// over this thread's applied pairs (index < my_n), for NPTS depths in one
-// sweep of the tile's list; with WANT_D also d(log T)/dt. `nmax` (the block's
-// largest my_n) bounds the staging and is uniform over the block.
+// One applied pair's term of log T(t) in the half-gaussian-CDF model
+// (render_pallas.py:_median_model): the pair with opacity `alpha`
+// (l1m = log1p(-alpha)), depth peak `t_peak` and inverse depth sigma `rsig`,
+// at ray distance t; with WANT_D also its d/dt in `dlf`. The median search
+// (B1, B3) sums it at trial depths, the point integrate (B4) at the point's
+// own ray distance.
+template <bool WANT_D>
+__device__ __forceinline__ float half_cdf_log_factor(float alpha, float l1m,
+                                                     float t, float t_peak,
+                                                     float rsig, float& dlf) {
+  const float delta = (t - t_peak) * rsig;
+  const float hg = rsig > 0.f ? expf(-0.5f * delta * delta) : 0.f;
+  const float om = fmaxf(1.f - alpha * hg, 1e-12f);
+  const float hl = 0.5f * logf(om);
+  const bool behind = t > t_peak;
+  if (WANT_D) {
+    const float d = 0.5f * (alpha / om) * (-hg * delta * rsig);
+    dlf = behind ? d : -d;
+  }
+  return behind ? l1m - hl : hl;
+}
+
+// log T(ts[k]) of the half-gaussian-CDF model over this thread's applied
+// pairs (index < my_n), for NPTS depths in one sweep of the tile's list; with
+// WANT_D also d(log T)/dt. `nmax` (the block's largest my_n) bounds the
+// staging and is uniform over the block.
 template <int NPTS, bool WANT_D>
 __device__ void model_sweep(const Query& q, Batch& s, int nmax, int my_n,
                             const float* ts, float* lt, float* dlt) {
@@ -58,16 +81,9 @@ __device__ void model_sweep(const Query& q, Batch& s, int nmax, int my_n,
       const float l1m = log1pf(-alpha);
 #pragma unroll
       for (int k = 0; k < NPTS; ++k) {
-        const float delta = (ts[k] - t_peak) * rsig;
-        const float hg = rsig > 0.f ? expf(-0.5f * delta * delta) : 0.f;
-        const float om = fmaxf(1.f - alpha * hg, 1e-12f);
-        const float hl = 0.5f * logf(om);
-        const bool behind = ts[k] > t_peak;
-        lt[k] += behind ? l1m - hl : hl;
-        if (WANT_D) {
-          const float dlf = 0.5f * (alpha / om) * (-hg * delta * rsig);
-          dlt[k] += behind ? dlf : -dlf;
-        }
+        float dlf = 0.f;
+        lt[k] += half_cdf_log_factor<WANT_D>(alpha, l1m, ts[k], t_peak, rsig, dlf);
+        if (WANT_D) dlt[k] += dlf;
       }
     }
   }

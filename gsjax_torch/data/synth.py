@@ -1,10 +1,11 @@
 """Consistent synthetic datasets: views RENDERED from a known gaussian set.
 
-The part of `gsjax/data/synth.py` the serving slice needs: the blob scene
-(`make_gaussians`) on a camera arc (`arc_pose`), copied unchanged, and
-`write_rendered_colmap`, which renders through the port. It writes a
-photometrically consistent binary COLMAP scene from a seed, so the render
-CLI and its tests need no external dataset.
+The part of `gsjax/data/synth.py` the port needs: the blob scene
+(`make_gaussians`) on a camera arc (`arc_pose`) and the sphere scene
+(`sphere_gaussians`, a known surface for meshing) on a full camera ring
+(`ring_pose`), copied unchanged, and `write_rendered_colmap`, which renders
+through the port. It writes a photometrically consistent binary COLMAP scene
+from a seed, so the CLIs and their tests need no external dataset.
 """
 
 from __future__ import annotations
@@ -43,6 +44,59 @@ def make_gaussians(n=250, seed=0):
     return means, scales, quats, opac, shs
 
 
+def sphere_gaussians(n=1500, seed=0, radius=1.0):
+    """Flattened gaussians tangent to a unit sphere — a known surface.
+
+    Each gaussian sits on the sphere, its two long axes tangent and the
+    short axis along the outward normal (scale ratio ~8:1), the same regime
+    PGSR's planarisation drives real scenes toward. Colour varies smoothly
+    with the normal so NVS/NCC have gradient signal.
+    """
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0, 1, (n, 3))
+    nrm = v / np.linalg.norm(v, axis=1, keepdims=True)
+    means = (radius * nrm).astype(np.float32)
+
+    # tangent frame per point
+    a = np.where(np.abs(nrm[:, 2:3]) < 0.9,
+                 np.array([[0.0, 0.0, 1.0]]), np.array([[1.0, 0.0, 0.0]]))
+    t1 = np.cross(nrm, a)
+    t1 /= np.linalg.norm(t1, axis=1, keepdims=True)
+    t2 = np.cross(nrm, t1)
+    # columns = principal axes (x,y tangent, z normal)
+    rot = np.stack([t1, t2, nrm], axis=2)            # [n,3,3]
+    quats = np.stack([_rotmat2qvec(r) for r in rot]).astype(np.float32)
+
+    area = 4 * np.pi * radius**2 / n
+    tang = np.sqrt(area) * 0.9
+    scales = np.stack([
+        np.full(n, tang), np.full(n, tang), np.full(n, tang / 8.0)],
+        axis=1).astype(np.float32) * rng.uniform(0.8, 1.25, (n, 1))
+    opac = rng.uniform(0.85, 0.98, (n, 1)).astype(np.float32)
+    shs = np.zeros((n, 16, 3), np.float32)
+    base = 0.5 + 0.45 * np.stack([nrm[:, 0], nrm[:, 1],
+                                  np.abs(nrm[:, 2])], axis=1)
+    shs[:, 0] = ((base - 0.5) / 0.282).astype(np.float32)
+    return (means, scales, quats.astype(np.float32), opac, shs)
+
+
+def ring_pose(i, n, radius=3.2, height_amp=0.9, target=(0.0, 0.0, 0.0)):
+    """Full 360-degree camera ring with alternating elevation: enough
+    coverage that TSDF fusion closes the sphere."""
+    ang = 2 * np.pi * i / n
+    h = height_amp * np.sin(3.0 * ang)
+    pos = np.array([radius * np.sin(ang), h, -radius * np.cos(ang)])
+    fwd = np.asarray(target) - pos
+    fwd = fwd / np.linalg.norm(fwd)
+    up = np.array([0.0, -1.0, 0.0])     # COLMAP y is down
+    right = np.cross(up, fwd)
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    r_w2c = np.stack([right, down, fwd])
+    tvec = -r_w2c @ pos
+    return r_w2c, tvec
+
+
 def arc_pose(i, n, radius=3.5, target=(0.0, 0.0, 0.0)):
     """World->cam rotation (COLMAP row convention) + tvec for pose i."""
     ang = (i / max(n - 1, 1) - 0.5) * 0.9
@@ -67,7 +121,7 @@ def write_rendered_colmap(root, n_images=6, width=96, height=64,
     binary COLMAP dataset. Returns the gaussian tuple used.
 
     `gaussians` overrides the default blob scene (a 5-tuple as returned by
-    make_gaussians); `pose_fn(i, n)` overrides arc_pose. The sparse points
+    make_gaussians or sphere_gaussians); `pose_fn(i, n)` overrides arc_pose. The sparse points
     (what training initialises from) are every `points_stride`-th gaussian
     centre with its DC colour. Renders on `device` (cuda unless asked for
     the CPU)."""

@@ -16,8 +16,14 @@ them back through the projection, as it carries the ray-to-z factor.
 Points outside the view's frustum are not queried: their values are exact
 zeros with zero gradient.
 
-`integrate` (the transmittance at each point's own depth, TPU kernel B4)
-serves meshing and comes with that slice.
+`integrate` (evaluateTransmittanceCUDA, sample_forward.cu:55-169) gives the
+half-gaussian-CDF transmittance at each point's own ray distance through
+`sample_cuda.integrate_fwd` (kernel B4, or its twin); it is forward only and
+serves meshing. A query is built in two halves: `prepare_view` (preprocess,
+binning, pair payload: what depends on the gaussians and the camera) and
+`prepare_points` (projection, tile sort, block table), so a caller that
+queries one fixed model many times, as mesh extraction does, builds each
+view's half once (`integrate_view`).
 """
 
 from __future__ import annotations
@@ -72,6 +78,27 @@ def point_blocks(sorted_tile: torch.Tensor, num_tiles: int) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class ViewPairs:
+    """The per-view half of a point query: the view's pair payload and its
+    lists."""
+    feats: torch.Tensor        # [K,16] pair payload, binning order
+    binning: Binning           # its lists (continuous_coords)
+
+
+def prepare_view(means3d, scales, rotations, opacities, camera: Camera,
+                 cfg: RasterConfig, alive=None) -> ViewPairs:
+    """Preprocess and bin the gaussians for point queries in `camera` (SH/SG
+    degree 0: colour is unused)."""
+    cfg0 = dataclasses.replace(cfg, sh_degree=0, sg_degree=0)
+    shs = means3d.new_zeros(means3d.shape[0], 1, 3)
+    prep = preprocess(means3d, scales, rotations, opacities, shs, None, None, None,
+                      camera, cfg0, alive)
+    binning = bin_gaussians(prep, cfg0, camera.width, camera.height,
+                            continuous_coords=True)
+    return ViewPairs(feats=render_ref.prepare_pairs(prep, binning), binning=binning)
+
+
+@dataclasses.dataclass(frozen=True)
 class Query:
     """What the kernels of a point query read, and the projection."""
     feats: torch.Tensor        # [K,16] pair payload of the view, binning order
@@ -85,26 +112,26 @@ class Query:
     inside0: torch.Tensor      # [Q] in front of the near plane and on screen
 
 
-def prepare_query(points, means3d, scales, rotations, opacities, camera: Camera,
-                  cfg: RasterConfig, alive=None) -> Query:
-    """Preprocess and bin the gaussians (SH/SG degree 0: colour is unused),
-    project the points and sort the ones inside the frustum by tile."""
-    cfg0 = dataclasses.replace(cfg, sh_degree=0, sg_degree=0)
-    shs = means3d.new_zeros(means3d.shape[0], 1, 3)
-    prep = preprocess(means3d, scales, rotations, opacities, shs, None, None, None,
-                      camera, cfg0, alive)
-    binning = bin_gaussians(prep, cfg0, camera.width, camera.height,
-                            continuous_coords=True)
+def prepare_points(view: ViewPairs, points, camera: Camera,
+                   cfg: RasterConfig) -> Query:
+    """Project the points and sort the ones inside the frustum by tile."""
     px, py, t_ray, inside0 = _project_points(points, camera, cfg)
     tiles_x, tiles_y = cfg.grid(camera.width, camera.height)
     sel = torch.nonzero(inside0).squeeze(1)
     sorted_tile, order = torch.sort(_point_tile(px.detach()[sel], py.detach()[sel],
                                                 camera, cfg), stable=True)
     sorted_q = sel[order]
-    return Query(feats=render_ref.prepare_pairs(prep, binning), binning=binning,
+    return Query(feats=view.feats, binning=view.binning,
                  pts=torch.stack([px[sorted_q], py[sorted_q]], -1).contiguous(),
                  blocks=point_blocks(sorted_tile, tiles_x * tiles_y),
                  sorted_q=sorted_q, px=px, py=py, t_ray=t_ray, inside0=inside0)
+
+
+def prepare_query(points, means3d, scales, rotations, opacities, camera: Camera,
+                  cfg: RasterConfig, alive=None) -> Query:
+    """Both halves of a query: `prepare_view`, then `prepare_points`."""
+    view = prepare_view(means3d, scales, rotations, opacities, camera, cfg, alive)
+    return prepare_points(view, points, camera, cfg)
 
 
 def _query(points, means3d, scales, rotations, opacities, camera: Camera,
@@ -154,3 +181,30 @@ def evaluate_sdf(points: torch.Tensor, means3d, scales, rotations, opacities,
     md, in_r, qr = _query(points, means3d, scales, rotations, opacities, camera, cfg,
                           alive)
     return dict(sdf=md - qr.t_ray, depth=md, inside=in_r & qr.inside0)
+
+
+@torch.no_grad()
+def integrate_view(view: ViewPairs, points: torch.Tensor, camera: Camera,
+                   cfg: RasterConfig) -> dict:
+    """`integrate` on a view's prepared pairs (`prepare_view` of the same
+    camera and config)."""
+    qr = prepare_points(view, points, camera, cfg)
+    fwd, = select(cfg, qr.feats.device, (sample_cuda.integrate_fwd,),
+                  (sample_ref.integrate_rows,))
+    res = fwd(qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts,
+              qr.t_ray[qr.sorted_q].contiguous(), qr.blocks, cfg)
+    # points outside the frustum keep T = 1 (alpha 0)
+    tp = torch.ones(points.shape[0], dtype=res.dtype, device=res.device)
+    tp[qr.sorted_q] = torch.where(res[1] > 0, res[0], 1.0)
+    return dict(alpha=1.0 - tp, transmittance=tp, inside=qr.inside0)
+
+
+def integrate(points: torch.Tensor, means3d, scales, rotations, opacities,
+              camera: Camera, cfg: RasterConfig, alive=None) -> dict:
+    """Transmittance of each query point along its camera ray, at its own ray
+    distance (evaluateTransmittanceCUDA). Forward only.
+
+    Returns dict(alpha [Q] = 1 - T, transmittance [Q], inside [Q] bool: in
+    front of the near plane and on screen; outside points have T = 1)."""
+    view = prepare_view(means3d, scales, rotations, opacities, camera, cfg, alive)
+    return integrate_view(view, points, camera, cfg)

@@ -1,15 +1,19 @@
-"""Point-query kernels: wrappers of `csrc/sample_fwd.cu` (B3) and
-`csrc/sample_bwd.cu` (B5), and the autograd Function that pairs them.
+"""Point-query kernels: wrappers of `csrc/sample_fwd.cu` (B3, and B4 in its
+integrate mode) and `csrc/sample_bwd.cu` (B5), and the autograd Function
+that pairs B3 and B5.
 
 B3 replaces the TPU kernel `gsjax/ops/raster/sample_pallas.py:_sfwd_kernel`
-in depth mode, B5 its backward `_sbwd_kernel`. `sample_fwd` takes a view's
-pair payload in binning order, points sorted by tile and their block table
-(`sample_ref` for the layout) and returns the [6, Q] rows; `sample_bwd` takes
-those rows and the cotangent of row 0 (m_t) and returns d(payload) [K, 16]
-and d(points) [Q, 2]. For tensors on the CPU each runs its plain-PyTorch
-twin (`sample_ref.sample_fwd_rows`, `sample_bwd_rows`); for CUDA tensors each
-launches its kernel or raises. `sample_fwd.launches` and `sample_bwd.launches`
-count kernel launches.
+in depth mode, B4 the same kernel in integrate mode, B5 its backward
+`_sbwd_kernel`. `sample_fwd` takes a view's pair payload in binning order,
+points sorted by tile and their block table (`sample_ref` for the layout) and
+returns the [6, Q] rows; `integrate_fwd` takes the same and the points' ray
+distances and returns the [5, Q] rows (forward only, as gsjax and the
+reference's evaluateTransmittance); `sample_bwd` takes B3's rows and the
+cotangent of row 0 (m_t) and returns d(payload) [K, 16] and d(points) [Q, 2].
+For tensors on the CPU each runs its plain-PyTorch twin
+(`sample_ref.sample_fwd_rows`, `integrate_rows`, `sample_bwd_rows`); for CUDA
+tensors each launches its kernel or raises. `sample_fwd.launches`,
+`integrate_fwd.launches` and `sample_bwd.launches` count kernel launches.
 
 `SampleDepth` is the differentiable query, as gsjax's `custom_vjp`
 `sample_depth_pallas`: its forward keeps the payload, the points, the lists
@@ -75,6 +79,40 @@ def sample_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
 
 
 sample_fwd.launches = 0
+
+
+def integrate_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
+                  tile_count: torch.Tensor, pts: torch.Tensor, t_eval: torch.Tensor,
+                  blocks: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """Transmittance at each point's own ray distance -> [5, Q] float32 rows,
+    sorted order (row 0 T(point), 1 covered, 2-4 n_contrib, md_init,
+    T_final).
+
+    t_eval [Q] float32: the sorted points' ray distances; other arguments
+    as `sample_fwd`."""
+    if feats_pairs.device.type == "cpu":
+        return sample_ref.integrate_rows(feats_pairs, tile_start, tile_count, pts,
+                                         t_eval, blocks, cfg)
+    _check_launch("integrate_fwd", feats_pairs, tile_start, tile_count, pts, blocks)
+    q = pts.shape[0]
+    _check("t_eval", t_eval, torch.float32, (q,), pts.device)
+    out = torch.zeros(sample_ref.N_ROWS_INTEGRATE, q, device=pts.device)
+    if blocks.shape[0] == 0:
+        return out
+    fn = _build.load("integrate_fwd").gsjax_integrate_fwd
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+                pts.data_ptr(), t_eval.data_ptr(), blocks.data_ptr(), out.data_ptr(),
+                blocks.shape[0], q, cfg.max_per_tile, cfg.alpha_clamp, cfg.alpha_min,
+                cfg.transmittance_min, stream)
+    if rc != 0:
+        raise RuntimeError(f"integrate_fwd kernel launch failed: cudaError {rc}")
+    integrate_fwd.launches += 1
+    return out
+
+
+integrate_fwd.launches = 0
 
 
 def sample_bwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,

@@ -1,5 +1,6 @@
 """Point queries in plain PyTorch: the twins of the CUDA kernels
-`csrc/sample_fwd.cu` (B3) and `csrc/sample_bwd.cu` (B5).
+`csrc/sample_fwd.cu` (B3, and B4 in its integrate mode) and
+`csrc/sample_bwd.cu` (B5).
 
 Port of the math of gsjax's point path: the march and bisection of
 `gsjax/ops/sample.py` (`_march_rounds`, `_rounds_xla` with
@@ -18,6 +19,13 @@ T(t) = 0.5 of the half-gaussian-CDF model, is bisected
 in sorted order: 0 m_t (ray distance; 0 out of range), 1 in_range,
 2 n_contrib, 3 md_init, 4 T_final, 5 dlogT/dt at the root (0 out of range);
 rows 0-5 of gsjax's `sample_depth_pallas`.
+
+`integrate_rows`: the same march, then the half-gaussian-CDF model of
+`render_ref._log_t_model` over the pairs the march applied (before n_contrib,
+passing the alpha test: with the stop for good, exactly the applied ones) at
+each point's own ray distance (gsjax's `_march_rounds` with `etr`). It
+returns [5, Q] rows: 0 T(point), 1 covered (= 1), 2-4 as above; rows 0-4 of
+gsjax's `integrate_pallas`.
 
 `sample_bwd_rows`: the VJP of m_t, read from those rows (the forward is not
 re-run). By the implicit function, dm/dtheta = -(dlogT/dtheta)/(dlogT/dt):
@@ -38,6 +46,7 @@ from gsjax_torch.ops.raster.config import RasterConfig
 
 BLOCK = 256    # points per block: the kernels' thread block
 N_ROWS = 6
+N_ROWS_INTEGRATE = 5
 
 
 def _batches(tile_start, tile_count, blocks, cfg: RasterConfig):
@@ -63,8 +72,9 @@ def _block_points(pts, blocks, ids):
     return idx, xy[..., 0], xy[..., 1], valid
 
 
-def _fwd_batch(feats_pad, starts, counts, px, py, cfg: RasterConfig):
-    """[B, 6, P] rows of a batch of blocks (module docstring)."""
+def _march(feats_pad, starts, counts, px, py, cfg: RasterConfig):
+    """The blend's march of a batch of blocks -> (T_final, n_contrib,
+    md_init), each [B, P]."""
     b, p = px.shape
     z = lambda *s: torch.zeros(b, p, *s, dtype=px.dtype, device=px.device)
     carry = (z(), z(3), z(3), torch.full((b, p), -1, device=px.device), z(),
@@ -74,8 +84,13 @@ def _fwd_batch(feats_pad, starts, counts, px, py, cfg: RasterConfig):
                                                  cfg.chunk)
         carry = render_ref._chunk_blend(carry, f, rel, valid, px, py, cfg)
     log_t, _, _, last_idx, md_init, _ = carry
-    t_final = torch.exp(log_t)
-    n_contrib = last_idx + 1
+    return torch.exp(log_t), last_idx + 1, md_init
+
+
+def _fwd_batch(feats_pad, starts, counts, px, py, cfg: RasterConfig):
+    """[B, 6, P] rows of a batch of blocks (module docstring)."""
+    z = lambda: torch.zeros_like(px)
+    t_final, n_contrib, md_init = _march(feats_pad, starts, counts, px, py, cfg)
     m_t, in_range = render_ref.bisect_batch(feats_pad, starts, n_contrib, md_init,
                                             t_final, px, py, cfg)
     _, d_denom = render_ref._log_t_model(feats_pad, starts, n_contrib, px, py,
@@ -95,6 +110,26 @@ def sample_fwd_rows(feats_pairs, tile_start, tile_count, pts, blocks,
     for ids, starts, counts in _batches(tile_start, tile_count, blocks, cfg):
         idx, px, py, valid = _block_points(pts, blocks, ids)
         rows = _fwd_batch(feats_pad, starts, counts, px, py, cfg)
+        out[:, idx[valid]] = rows.transpose(0, 1)[:, valid]
+    return out
+
+
+def integrate_rows(feats_pairs, tile_start, tile_count, pts, t_eval, blocks,
+                   cfg: RasterConfig) -> torch.Tensor:
+    """Twin of B4 -> [5, Q] rows in sorted point order (module docstring).
+
+    t_eval [Q]: each sorted point's ray distance; other arguments as
+    `sample_fwd_rows`."""
+    out = pts.new_zeros(N_ROWS_INTEGRATE, pts.shape[0])
+    feats_pad = torch.cat([feats_pairs, feats_pairs.new_zeros(1, render_ref._F)])
+    for ids, starts, counts in _batches(tile_start, tile_count, blocks, cfg):
+        idx, px, py, valid = _block_points(pts, blocks, ids)
+        t_final, n_contrib, md_init = _march(feats_pad, starts, counts, px, py, cfg)
+        et = torch.where(valid, t_eval[idx], torch.zeros_like(px))
+        log_tp, _ = render_ref._log_t_model(feats_pad, starts, n_contrib, px, py,
+                                            et[..., None], cfg)
+        rows = torch.stack([torch.exp(log_tp[..., 0]), torch.ones_like(px),
+                            n_contrib.to(px.dtype), md_init, t_final], 1)
         out[:, idx[valid]] = rows.transpose(0, 1)[:, valid]
     return out
 
