@@ -10,7 +10,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
   parity      `render()` with backend "cuda" (kernel B1) against backend
               "torch" (its plain-PyTorch twin), and B1's other output rows
               against the twin's on the same pair lists, at 640x360 / 20k
-              gaussians and at 1920x1080 / 100k;
+              gaussians and at 1920x1080 / 100k; B1's rows at the default
+              median slots and at slots=0 (every search re-walks the list);
   parity_bwd  kernel B2 against its twin `render_ref.blend_bwd_planes` on the
               same B1 planes and seeded cotangent, per pair and per gaussian,
               at both sizes, with and without the median depth;
@@ -20,7 +21,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
   parity_sample  kernels B3 / B5 (the point query and its VJP) against their
               twins in `ops/sample_ref.py`, on a reference arc view's
               depth-valid pixels queried in its neighbour, at 640x360 / 20k
-              and 1920x1080 / 100k;
+              and 1920x1080 / 100k; B3 at the default slots and at slots=0;
   parity_warp kernel B6 (the NCC's neighbour-tap sampler) against its twin
               on the 49 taps of each pixel's homography at 1920x1080;
   train       the training CLI (`gsjax_torch.train.main`) for 40 steps on a
@@ -30,6 +31,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
               B5's and B6's the steps that ran the multi-view losses;
   timing      CUDA-event times of preprocess, binning, B1 and a whole
               `render()` at 1920x1080 / 100k, with B1's bound;
+  search      how the median search of B1 (1920x1080 / 100k) and of B3 (the
+              multi-view query) went, from the kernels' counters: threads on
+              the slot path and on the re-walk, Newton evaluations, varying
+              pairs per thread (p50, p99, max, at the 6-sigma fold and at 14.5
+              sigma), the folded share of applied pairs, and the kernel's time
+              at the default slots beside slots=0;
   timing_train  B2 with and without depth and its bound, bench.py's
               fwd+bwd loss as rays/s, a train step with regularisation on and
               off with its stage split and peak memory, and a profiler
@@ -318,6 +325,16 @@ def compare(ko, to, kp, tp):
     }
 
 
+def plane_images(planes):
+    """[16, H, W] blend planes -> the keys of a `render()` dict that
+    `compare` reads."""
+    from gsjax_torch.ops.raster import render_ref
+
+    img = render_ref.planes_to_images(planes)
+    return {"render": img["color"], "alpha": img["alpha"], "normal": img["normal"],
+            "median_depth": img["median_depth"], "n_contrib": img["n_contrib"]}
+
+
 def phase_build():
     from gsjax_torch import _build
 
@@ -347,6 +364,7 @@ def phase_parity(width, height, n, dev):
     blend_args = (feats, binning.tile_start, binning.tile_count, width, height,
                   cam.fx, cam.fy, bg, cfg)
     kp = render_cuda.blend_fwd(*blend_args)
+    kp0 = render_cuda.blend_fwd(*blend_args, slots=0)
     torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
@@ -355,25 +373,28 @@ def phase_parity(width, height, n, dev):
     torch.cuda.synchronize()
     twin_ms = a.elapsed_time(b)
     err = compare(ko, to, kp, tp)
+    err0 = compare(plane_images(kp0), plane_images(tp), kp0, tp)
     emit({"phase": "parity", "width": width, "height": height, "gaussians": n,
           "pairs": binning.num_live, "max_tile_count": binning.max_tile_count,
-          "twin_ms": twin_ms, **err})
-    check(torch.isfinite(kp).all(), "kernel output not finite")
-    for name in ("color", "alpha", "normal"):
-        check(err[f"{name}_close_frac"] >= FLIP_FRAC,
-              f"{name} within tolerance on {err[f'{name}_close_frac']}")
-        check(err[f"{name}_max_abs_err"] <= TOL_FLIP,
-              f"{name} max error {err[f'{name}_max_abs_err']}")
-    check(err["median_depth_close_frac"] >= MD_FRAC,
-          f"median depth close on {err['median_depth_close_frac']}")
-    check(err["median_depth_max_abs_err"] <= MD_MAX,
-          f"median depth max error {err['median_depth_max_abs_err']}")
-    check(err["md_init_close_frac"] >= MD_FRAC, f"md_init close on {err['md_init_close_frac']}")
-    check(err["in_range_equal_frac"] >= MD_FRAC, f"in_range equal on {err['in_range_equal_frac']}")
-    check(err["n_contrib_equal_frac"] >= NCONTRIB_FRAC,
-          f"n_contrib equal on {err['n_contrib_equal_frac']}")
-    check(err["dlogT_dt_close_frac"] >= DD_FRAC,
-          f"dlogT/dt close on {err['dlogT_dt_close_frac']}")
+          "twin_ms": twin_ms, "slots": render_cuda.SLOTS, **err, "slots0": err0})
+    for e, tag, planes in ((err, f"slots={render_cuda.SLOTS}", kp), (err0, "slots=0", kp0)):
+        check(torch.isfinite(planes).all(), f"kernel output not finite ({tag})")
+        for name in ("color", "alpha", "normal"):
+            check(e[f"{name}_close_frac"] >= FLIP_FRAC,
+                  f"{name} within tolerance on {e[f'{name}_close_frac']} ({tag})")
+            check(e[f"{name}_max_abs_err"] <= TOL_FLIP,
+                  f"{name} max error {e[f'{name}_max_abs_err']} ({tag})")
+        check(e["median_depth_close_frac"] >= MD_FRAC,
+              f"median depth close on {e['median_depth_close_frac']} ({tag})")
+        check(e["median_depth_max_abs_err"] <= MD_MAX,
+              f"median depth max error {e['median_depth_max_abs_err']} ({tag})")
+        check(e["md_init_close_frac"] >= MD_FRAC, f"md_init close on {e['md_init_close_frac']}")
+        check(e["in_range_equal_frac"] >= MD_FRAC,
+              f"in_range equal on {e['in_range_equal_frac']} ({tag})")
+        check(e["n_contrib_equal_frac"] >= NCONTRIB_FRAC,
+              f"n_contrib equal on {e['n_contrib_equal_frac']}")
+        check(e["dlogT_dt_close_frac"] >= DD_FRAC,
+              f"dlogT/dt close on {e['dlogT_dt_close_frac']} ({tag})")
     return err, twin_ms
 
 
@@ -724,6 +745,26 @@ def kernel_bound_ms(planes, feats, binning, cfg, width, height):
             "interactions_newton": float(in_range.sum())}
 
 
+def phase_search(kernel, launch, dev, **where):
+    """How the median search of `kernel` went: `launch(slots, counters)` runs
+    it once. Its counters at the default slots (`render_cuda.search_stats`),
+    its time there and at slots=0 (every search re-walks the list)."""
+    from gsjax_torch.ops.raster import render_cuda
+
+    ctr = render_cuda.search_counters(dev)
+    launch(render_cuda.SLOTS, ctr)
+    st = render_cuda.search_stats(ctr)
+    ms = event_ms(lambda: launch(render_cuda.SLOTS, None))
+    ms0 = event_ms(lambda: launch(0, None))
+    emit({"phase": "search", "kernel": kernel, **where, "slots": render_cuda.SLOTS,
+          "ms": ms, "slots0_ms": ms0, **st})
+    check(st["searched"] > 0, f"{kernel}: no median searched")
+    check(sum(st["hist"]) == st["searched"] and st["searched"] <= st["candidates"],
+          f"{kernel}: search counters do not add up")
+    check(1 <= st["iters_max"] <= 12, f"{kernel}: {st['iters_max']} Newton evaluations")
+    return st
+
+
 def phase_timing(dev, twin_ms, width=1920, height=1080, n=100_000):
     import torch
 
@@ -751,6 +792,9 @@ def phase_timing(dev, twin_ms, width=1920, height=1080, n=100_000):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     bound = kernel_bound_ms(blend(), feats, binning, cfg, width, height)
+    phase_search("blend_fwd", lambda s, c: render_cuda.blend_fwd(
+        feats, binning.tile_start, binning.tile_count, width, height, cam.fx, cam.fy, bg,
+        cfg, slots=s, counters=c), dev, width=width, height=height, gaussians=n)
     emit({"phase": "timing", "width": width, "height": height, "gaussians": n,
           "pairs": binning.num_live, "enumerated_pairs": binning.num_pairs,
           "max_tile_count": binning.max_tile_count,
@@ -945,22 +989,28 @@ def phase_parity_sample(width, height, n, dev, scene=None):
     qr = prepare_query(sc["points"], *sc["args"], sc["cams"][1], cfg)
     lists = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts, qr.blocks)
     rk = sample_cuda.sample_fwd(*lists, cfg)
+    rk0 = sample_cuda.sample_fwd(*lists, cfg, slots=0)
     rt, fwd_twin_ms = timed_once(lambda: sample_ref.sample_fwd_rows(*lists, cfg))
-    both = (rk[1] > 0) & (rt[1] > 0)
-    md_close = torch.isclose(rk[0], rt[0], atol=MD_ATOL, rtol=MD_RTOL)
-    dd_close = torch.isclose(rk[5][both], rt[5][both], rtol=DD_RTOL, atol=DD_ATOL)
+
+    def fwd_err(rk):
+        both = (rk[1] > 0) & (rt[1] > 0)
+        md_close = torch.isclose(rk[0], rt[0], atol=MD_ATOL, rtol=MD_RTOL)
+        dd_close = torch.isclose(rk[5][both], rt[5][both], rtol=DD_RTOL, atol=DD_ATOL)
+        return {"finite": bool(torch.isfinite(rk).all()),
+                "in_range_frac": float((rk[1] > 0).float().mean()),
+                "in_range_equal_frac": float((rk[1] == rt[1]).float().mean()),
+                "m_t_close_frac": float(md_close.float().mean()),
+                "m_t_max_abs_err": float((rk[0] - rt[0])[both].abs().max()),
+                "n_contrib_equal_frac": float((rk[2] == rt[2]).float().mean()),
+                "md_init_close_frac": float(torch.isclose(rk[3], rt[3], atol=MD_ATOL,
+                                                          rtol=MD_RTOL).float().mean()),
+                "t_final_max_abs_err": float((rk[4] - rt[4]).abs().max()),
+                "dlogT_dt_close_frac": float(dd_close.float().mean())}
+
     fwd = {"points": int(qr.pts.shape[0]), "blocks": int(qr.blocks.shape[0]),
            "pairs": qr.binning.num_live, "max_tile_count": qr.binning.max_tile_count,
-           "twin_fwd_ms": fwd_twin_ms, "finite": bool(torch.isfinite(rk).all()),
-           "in_range_frac": float((rk[1] > 0).float().mean()),
-           "in_range_equal_frac": float((rk[1] == rt[1]).float().mean()),
-           "m_t_close_frac": float(md_close.float().mean()),
-           "m_t_max_abs_err": float((rk[0] - rt[0])[both].abs().max()),
-           "n_contrib_equal_frac": float((rk[2] == rt[2]).float().mean()),
-           "md_init_close_frac": float(torch.isclose(rk[3], rt[3], atol=MD_ATOL,
-                                                     rtol=MD_RTOL).float().mean()),
-           "t_final_max_abs_err": float((rk[4] - rt[4]).abs().max()),
-           "dlogT_dt_close_frac": float(dd_close.float().mean())}
+           "twin_fwd_ms": fwd_twin_ms, "slots": sample_cuda.SLOTS, **fwd_err(rk)}
+    fwd0 = fwd_err(rk0)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -984,18 +1034,20 @@ def phase_parity_sample(width, height, n, dev, scene=None):
            "point_close_frac": float((perr <= PT_TOL).double().mean()),
            "nonzero_cols": [int(c) for c in torch.nonzero(dt.abs().amax(0) > 0)[:, 0]]}
     emit({"phase": "parity_sample", "width": width, "height": height, "gaussians": n,
-          **fwd, **bwd})
-    check(fwd["finite"] and bwd["bwd_finite"], "B3 / B5 output not finite")
-    check(fwd["m_t_close_frac"] >= MD_FRAC, f"B3 m_t close on {fwd['m_t_close_frac']}")
-    check(fwd["m_t_max_abs_err"] <= MD_MAX, f"B3 m_t max error {fwd['m_t_max_abs_err']}")
-    check(fwd["in_range_equal_frac"] >= MD_FRAC,
-          f"B3 in_range equal on {fwd['in_range_equal_frac']}")
-    check(fwd["md_init_close_frac"] >= MD_FRAC, f"B3 md_init close on {fwd['md_init_close_frac']}")
-    check(fwd["n_contrib_equal_frac"] >= NCONTRIB_FRAC,
-          f"B3 n_contrib equal on {fwd['n_contrib_equal_frac']}")
-    check(fwd["dlogT_dt_close_frac"] >= DD_FRAC,
-          f"B3 dlogT/dt close on {fwd['dlogT_dt_close_frac']}")
-    check(fwd["in_range_frac"] > 0.5, f"only {fwd['in_range_frac']} of the queries in range")
+          **fwd, "slots0": fwd0, **bwd})
+    check(bwd["bwd_finite"], "B5 output not finite")
+    for f, tag in ((fwd, f"slots={sample_cuda.SLOTS}"), (fwd0, "slots=0")):
+        check(f["finite"], f"B3 output not finite ({tag})")
+        check(f["m_t_close_frac"] >= MD_FRAC, f"B3 m_t close on {f['m_t_close_frac']} ({tag})")
+        check(f["m_t_max_abs_err"] <= MD_MAX, f"B3 m_t max error {f['m_t_max_abs_err']} ({tag})")
+        check(f["in_range_equal_frac"] >= MD_FRAC,
+              f"B3 in_range equal on {f['in_range_equal_frac']} ({tag})")
+        check(f["md_init_close_frac"] >= MD_FRAC, f"B3 md_init close on {f['md_init_close_frac']}")
+        check(f["n_contrib_equal_frac"] >= NCONTRIB_FRAC,
+              f"B3 n_contrib equal on {f['n_contrib_equal_frac']}")
+        check(f["dlogT_dt_close_frac"] >= DD_FRAC,
+              f"B3 dlogT/dt close on {f['dlogT_dt_close_frac']} ({tag})")
+        check(f["in_range_frac"] > 0.5, f"only {f['in_range_frac']} of the queries in range")
     check(bwd["nonzero_cols"] == [0, 1, 2, 3, 4, 5, 9, 10, 11, 12],
           f"twin gradient columns {bwd['nonzero_cols']}")
     for key, frac, mx in (("pair", BWD_FRAC, BWD_MAX), ("gauss", GAUSS_FRAC, GAUSS_MAX),
@@ -1137,6 +1189,8 @@ def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
     out["b3_ms"] = event_ms(lambda: sample_cuda.sample_fwd(*lists, cfg))
     out["b5_ms"] = event_ms(lambda: sample_cuda.sample_bwd(*lists, res, g, cfg))
     b3_bound, b5_bound = sample_bounds(qr, res, g, cfg)
+    phase_search("sample_fwd", lambda s, c: sample_cuda.sample_fwd(
+        *lists, cfg, slots=s, counters=c), dev, points=int(qr.pts.shape[0]))
 
     un, vn = scene_taps(sc)
     gray_n = sc["gray"][1]
@@ -1282,7 +1336,9 @@ def phase_timing_mesh(width, height, qr, t_eval, cfg, res):
            "b4_ms": event_ms(lambda: sample_cuda.integrate_fwd(*lists, t_eval, qr.blocks,
                                                                cfg)),
            "b3_same_points_ms": event_ms(lambda: sample_cuda.sample_fwd(*lists, qr.blocks,
-                                                                        cfg))}
+                                                                        cfg)),
+           "b3_same_points_slots0_ms": event_ms(lambda: sample_cuda.sample_fwd(
+               *lists, qr.blocks, cfg, slots=0))}
     marched, applied = point_interactions(qr, res, cfg)
     ops = float((marched * OPS_ALPHA + applied * (OPS_POINT_APPLY + OPS_PAIR_MEDIAN
                                                   + OPS_DEPTH)).sum())

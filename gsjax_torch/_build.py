@@ -35,10 +35,11 @@ _L = ctypes.c_longlong
 # one source share its library
 KERNELS = {
     "blend_fwd": ("csrc/blend_fwd.cu", "gsjax_blend_fwd", [
-        _P, _P, _P, _P, _P,            # feats, tile_start, tile_count, bg, out
+        _P, _P, _P, _P, _P, _P,        # feats, tile_start, tile_count, bg, out,
+                                       # counters
         _I, _I, _I, _I, _I,            # width, height, tiles_x, tiles_y, tile
         _F, _F,                        # fx, fy
-        _I, _I,                        # max_per_tile, require_depth
+        _I, _I, _I,                    # max_per_tile, require_depth, slots
         _F, _F, _F, _F, _F,            # alpha_clamp, alpha_min, t_min,
                                        # sample_range, min_transmittance
         _P,                            # cudaStream_t
@@ -53,9 +54,9 @@ KERNELS = {
         _P,                            # cudaStream_t
     ]),
     "sample_fwd": ("csrc/sample_fwd.cu", "gsjax_sample_fwd", [
-        _P, _P, _P, _P, _P, _P,        # feats, tile_start, tile_count, pts,
-                                       # blocks, out
-        _I, _I, _I,                    # n_blocks, q, max_per_tile
+        _P, _P, _P, _P, _P, _P, _P,    # feats, tile_start, tile_count, pts,
+                                       # blocks, out, counters
+        _I, _I, _I, _I,                # n_blocks, q, max_per_tile, slots
         _F, _F, _F, _F, _F,            # alpha_clamp, alpha_min, t_min,
                                        # sample_range, min_transmittance
         _P,                            # cudaStream_t

@@ -57,6 +57,16 @@ __device__ __forceinline__ bool pair_alpha(float alpha_clamp, float alpha_min,
   return alpha >= alpha_min;
 }
 
+// Lets `kernel` launch with `bytes` of dynamic shared memory (where static and
+// dynamic exceed 48 KB together the launch must ask for it first); returns
+// the CUDA error (0 = allowed).
+template <typename Kernel>
+inline int set_dynamic_smem(Kernel kernel, int bytes) {
+  if (bytes == 0) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
 // Largest v over the block; every thread of the block must call it.
 __device__ int block_max(int v, int* slot) {
   __syncthreads();                      // earlier readers of *slot are done

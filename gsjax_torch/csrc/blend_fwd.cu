@@ -14,13 +14,14 @@
 // z-depth, 8 n_contrib, 9 md_init, 10 T_final, 11 in_range, 12 dlogT/dt at
 // the root, 13-15 zero.
 //
-// What bounds it on an H100: operations, not bytes. Each pair is read once
-// from device memory per 16x16 block (64 bytes) but evaluated against every
-// pixel of the block: the alpha test alone costs 16 fp32 operations per
-// (pair, pixel) interaction with one exp, and the median search sweeps each
-// pixel's contributors 14 times at ~40 operations (an exp and two logs)
-// each. The pair payload is staged in shared memory and read as broadcasts,
-// so memory traffic stays far below the arithmetic.
+// What bounds it on an H100: the median search, and there the special-
+// function rate and barriers, not bytes. Each pair is read once from device
+// memory per 16x16 block (64 bytes) and evaluated against every pixel of the
+// block from shared memory; the blend alone costs ~16 fp32 operations and one
+// exp per (pair, pixel) interaction. Each term of the median model costs an
+// exp, a log and a division, which the card issues at a fraction of its fp32
+// rate, and a search that re-walks the list also repeats the alpha test and
+// log1p(-alpha) and waits at two barriers per 256 staged pairs.
 //
 // Design (the reference CUDA rasterizer's own form, not the Pallas layout):
 //   - one thread per pixel; a 32x32 binning tile (kept so the lists match
@@ -30,14 +31,23 @@
 //     (16 KB of shared memory a batch);
 //   - each pixel stops on its own once T would fall below 1e-4, and the
 //     block stops staging when __syncthreads_count says every pixel is done;
-//   - the median search re-walks the list for each evaluation (one sweep for
-//     both bracket ends, 12 Newton sweeps, one final sweep), only up to the
-//     largest n_contrib among the block's pixels that still need a root.
-// The TPU kernel's 5-sigma chunk cull is not copied: every applied gaussian
-// is evaluated exactly in every sweep. Its Newton is kept (secant start,
-// bracket safeguard, final refinement that also yields dlogT/dt) with one
-// more safeguard, rtsafe's: bisect when a Newton step would not halve the
-// previous one; with it, 12 iterations in place of 7.
+//   - the median search (median.cuh) walks the list once more, folding every
+//     pair at least 6 sigmas behind or ahead of the pixel's bracket into an
+//     exact constant (the premise: no fast math, no flush-to-zero) and
+//     keeping the rest in the pixel's slots in dynamic shared memory
+//     (`slots` of 12 bytes a pixel, 32 by default: 96 KB a block, two
+//     blocks an SM); Newton then runs in the slots, each pixel on its own,
+//     refolding as its bracket narrows, until its iterate stands still;
+//   - a pixel whose set does not fit re-walks the staged list for its next
+//     evaluations, after the others are done, until its narrowed set fits.
+// The TPU kernel's 5-sigma chunk cull is not copied (it is approximate);
+// the fold above is exact. Its Newton is kept (secant start, bracket
+// safeguard, final refinement that also yields dlogT/dt) with rtsafe's
+// progress test (bisect when a Newton step would not halve the previous
+// one), up to 12 evaluations in place of 7, started from the half of the
+// bracket that holds the root, and left once it converges. The blend alone
+// (no median depth) is its own template instance: no slots, its own
+// registers.
 
 #include <cuda_runtime.h>
 
@@ -54,14 +64,20 @@ struct Params {
   const int* tile_count;    // [T] pairs of each tile (clamped here)
   const float* bg;          // [3]
   float* out;               // [16, H, W]
-  int width, height, tiles_x, tile, max_per_tile, require_depth;
+  int* counters;            // median.cuh:Counter, or nullptr
+  int width, height, tiles_x, tile, max_per_tile, slots;
   float fx, fy, alpha_clamp, alpha_min, t_min, sample_range, min_transmittance;
 };
 
+// kDepth: with the median depth (rows 7, 11, 12); a template argument, so
+// that the blend alone keeps its own registers and no shared slots
+template <bool kDepth>
 __global__ void __launch_bounds__(kThreads)
 blend_fwd_kernel(const Params p) {
   __shared__ Batch s;
   __shared__ int s_max;
+  extern __shared__ float slots[];      // [3][p.slots][kThreads], with depth
+  const long long t_start = kDepth && p.counters != nullptr ? clock64() : 0;
 
   const int nsub = p.tile / kSide;
   const int tile_id = (blockIdx.y / nsub) * p.tiles_x + blockIdx.x / nsub;
@@ -115,9 +131,11 @@ blend_fwd_kernel(const Params p) {
   // --- median depth: safeguarded Newton on log T(t) = log 1/2 -------------
   // (median.cuh; render_pallas.py:_median_search, the 5-sigma cull left out)
   Median med{0.f, 0.f, false};
-  if (p.require_depth) {
+  if (kDepth) {
     const Query q{p.feats, start, px, py, p.alpha_clamp, p.alpha_min};
-    med = median_search(q, s, &s_max, inside && T <= p.min_transmittance,
+    const int tid = threadIdx.y * kSide + threadIdx.x;
+    med = median_search(q, s, &s_max, Slots{slots + tid, p.slots}, p.counters,
+                        tid, t_start, inside && T <= p.min_transmittance,
                         n_contrib, md_init, p.sample_range);
   }
   if (!inside) return;
@@ -149,22 +167,33 @@ blend_fwd_kernel(const Params p) {
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream` with `slots` median slots per pixel (0: every search
+// re-walks) and `counters` (nullptr, or kCounters zeroed ints the search
+// adds to); returns the CUDA error (0 = launched).
 extern "C" int gsjax_blend_fwd(const float* feats, const int* tile_start,
                                const int* tile_count, const float* bg,
-                               float* out, int width, int height, int tiles_x,
-                               int tiles_y, int tile, float fx, float fy,
-                               int max_per_tile, int require_depth,
-                               float alpha_clamp, float alpha_min, float t_min,
+                               float* out, int* counters, int width,
+                               int height, int tiles_x, int tiles_y, int tile,
+                               float fx, float fy, int max_per_tile,
+                               int require_depth, int slots, float alpha_clamp,
+                               float alpha_min, float t_min,
                                float sample_range, float min_transmittance,
                                void* stream) {
-  const Params p{feats, tile_start, tile_count, bg, out,
-                 width, height, tiles_x, tile, max_per_tile, require_depth,
+  const Params p{feats, tile_start, tile_count, bg, out, counters,
+                 width, height, tiles_x, tile, max_per_tile, slots,
                  fx, fy, alpha_clamp, alpha_min, t_min, sample_range,
                  min_transmittance};
   const int nsub = tile / kSide;
   const dim3 grid(tiles_x * nsub, tiles_y * nsub);
   const dim3 block(kSide, kSide);
-  blend_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!require_depth) {
+    blend_fwd_kernel<false><<<grid, block, 0, st>>>(p);
+  } else {
+    const int smem = 3 * slots * kThreads * static_cast<int>(sizeof(float));
+    const int rc = set_dynamic_smem(blend_fwd_kernel<true>, smem);
+    if (rc != 0) return rc;
+    blend_fwd_kernel<true><<<grid, block, smem, st>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,24 +25,31 @@
 //                     root (0 out of range) -- what sample_bwd.cu (B5) reads;
 //   integrate [5, Q]: 0 T(point), 1 covered (= 1), 2-4 as depth.
 //
-// What bounds it on an H100: operations. A block reads its tile's pairs once
-// (64 bytes each) and evaluates each against every point of the block: the
-// alpha test is ~16 fp32 operations with one exp per (pair, point); the
-// median search sweeps each point's contributors 14 times at ~40 operations
-// (an exp and two logs) each, the integrate term is one such evaluation per
-// applied pair. Points are sparse per tile (a neighbour view's query set, or
-// the tetra points near a surface), so a block is often far from full and
-// its lanes idle: the design's own cost, as the list is staged for however
-// few points.
+// What bounds it on an H100: in depth mode the median search, and there the
+// special-function rate and barriers, not bytes; in integrate mode the
+// march's operations. A block reads its tile's pairs once (64 bytes each)
+// and evaluates each against every point of the block: the alpha test is
+// ~16 fp32 operations with one exp per (pair, point); each term of the
+// median model, and the integrate term, costs an exp, a log and a division,
+// which the card issues at a fraction of its fp32 rate. Points are sparse
+// per tile (a neighbour view's query set, or the tetra points near a
+// surface), so a block is often far from full and its lanes idle: the
+// design's own cost, as the list is staged for however few points.
 //
 // Design (the reference's point binning, rasterizer_impl.cu:1161-1236, not
 // the Pallas layout): one thread per point; a block stages its tile's list in
 // shared memory in batches of 256 pairs (blend_common.cuh:stage); each point
 // stops for good once T would fall below 1e-4, and the block stops staging
 // when __syncthreads_count says every point is done; then, in depth mode,
-// the median search of B1. The mode is a template argument, so the march and
-// its barriers are the same code in both. The TPU kernel's 128-aligned point
-// windows, rounds and double-buffered copies are not carried over.
+// the median search of B1 (median.cuh): one more walk of the list folds
+// every pair at least 6 sigmas behind or ahead of the point's bracket into
+// an exact constant (no fast math, no flush-to-zero) and keeps the rest in
+// the point's `slots` (12 bytes each) of dynamic shared memory, where Newton
+// runs without barriers; a point whose set does not fit re-walks the list
+// until its narrowed set fits. The mode is a template argument, so the march and
+// its barriers are the same code in both, and the integrate instance has no
+// slots and no search. The TPU kernel's 128-aligned point windows, rounds
+// and double-buffered copies are not carried over.
 
 #include <cuda_runtime.h>
 
@@ -65,7 +72,8 @@ struct SampleParams {
   const float* t_eval;      // [Q] ray distance of each point (integrate only)
   const int* blocks;        // [NB, 3] tile, first point, point count
   float* out;               // [6, Q] depth, [5, Q] integrate
-  int q, max_per_tile;
+  int* counters;            // median.cuh:Counter, or nullptr (depth only)
+  int q, max_per_tile, slots;
   float alpha_clamp, alpha_min, t_min, sample_range, min_transmittance;
 };
 
@@ -74,6 +82,9 @@ __global__ void __launch_bounds__(kThreads)
 sample_fwd_kernel(const SampleParams p) {
   __shared__ Batch s;
   __shared__ int s_max;
+  extern __shared__ float slots[];      // [3][p.slots][kThreads], depth only
+  const long long t_start =
+      kMode == Mode::kDepth && p.counters != nullptr ? clock64() : 0;
 
   const int* blk = p.blocks + 3 * blockIdx.x;
   const int tile = blk[0];
@@ -139,7 +150,9 @@ sample_fwd_kernel(const SampleParams p) {
   }
 
   const Query q{p.feats, start, px, py, p.alpha_clamp, p.alpha_min};
-  const Median med = median_search(q, s, &s_max,
+  const int tid = static_cast<int>(threadIdx.x);
+  const Median med = median_search(q, s, &s_max, Slots{slots + tid, p.slots},
+                                   p.counters, tid, t_start,
                                    active && T <= p.min_transmittance,
                                    n_contrib, md_init, p.sample_range);
   if (!active) return;
@@ -154,19 +167,24 @@ sample_fwd_kernel(const SampleParams p) {
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream` with `slots` median slots per point (0: every search
+// re-walks) and `counters` (nullptr, or kCounters zeroed ints the search
+// adds to); returns the CUDA error (0 = launched).
 extern "C" int gsjax_sample_fwd(const float* feats, const int* tile_start,
                                 const int* tile_count, const float* pts,
-                                const int* blocks, float* out, int n_blocks,
-                                int q, int max_per_tile, float alpha_clamp,
-                                float alpha_min, float t_min,
-                                float sample_range, float min_transmittance,
-                                void* stream) {
+                                const int* blocks, float* out, int* counters,
+                                int n_blocks, int q, int max_per_tile,
+                                int slots, float alpha_clamp, float alpha_min,
+                                float t_min, float sample_range,
+                                float min_transmittance, void* stream) {
   const SampleParams p{feats, tile_start, tile_count, pts, nullptr, blocks,
-                       out, q, max_per_tile, alpha_clamp, alpha_min, t_min,
-                       sample_range, min_transmittance};
+                       out, counters, q, max_per_tile, slots, alpha_clamp,
+                       alpha_min, t_min, sample_range, min_transmittance};
+  const int smem = 3 * slots * kThreads * static_cast<int>(sizeof(float));
+  const int rc = set_dynamic_smem(sample_fwd_kernel<Mode::kDepth>, smem);
+  if (rc != 0) return rc;
   sample_fwd_kernel<Mode::kDepth>
-      <<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+      <<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,8 +197,8 @@ extern "C" int gsjax_integrate_fwd(const float* feats, const int* tile_start,
                                    int max_per_tile, float alpha_clamp,
                                    float alpha_min, float t_min, void* stream) {
   const SampleParams p{feats, tile_start, tile_count, pts, t_eval, blocks,
-                       out, q, max_per_tile, alpha_clamp, alpha_min, t_min,
-                       0.f, 0.f};
+                       out, nullptr, q, max_per_tile, 0, alpha_clamp,
+                       alpha_min, t_min, 0.f, 0.f};
   sample_fwd_kernel<Mode::kIntegrate>
       <<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());

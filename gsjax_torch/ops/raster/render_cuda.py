@@ -10,6 +10,12 @@ twin (`render_ref.blend_planes`, `render_ref.blend_bwd_planes`); for CUDA
 tensors each launches its kernel or raises. `blend_fwd.launches` and
 `blend_bwd.launches` count kernel launches.
 
+B1's median search (`csrc/median.cuh`, shared with B3) keeps each pixel's
+varying pairs in `slots` slots of shared memory and re-walks the list
+for a pixel whose set does not fit; `slots=0` sends every pixel down that
+re-walk. An optional int32 `counters` buffer (`search_counters`) is filled
+by the kernel with how the search went, read by `search_stats`.
+
 `Blend` is the differentiable blend, as gsjax's `custom_vjp` `blend_pallas`:
 its forward runs a forward blend and keeps the payload, the lists and the
 planes; its backward runs the matching backward blend on the cotangent of
@@ -25,6 +31,23 @@ from gsjax_torch.ops.raster import render_ref
 from gsjax_torch.ops.raster.config import RasterConfig
 
 _SIDE = 16  # pixels per side of the kernels' thread block
+
+# Median slots per pixel or point (12 B each, 256 threads a block, so
+# slots x 3 KB of shared memory a block; 32 leave two blocks an SM), chosen
+# on the card (PERF.md).
+SLOTS = 32
+MAX_SLOTS = 64            # with the 16 KB staging buffer, within 227 KB
+# The search counters, in the order of median.cuh:Counter (the cycles are
+# warp cycles / 1024 summed over warps, read with clock64); then two
+# histograms of searched threads by varying pairs, at the fold cut (6 sigma)
+# and at the wide cut (14.5 sigma), the last bin holding the rest.
+SEARCH_COUNTERS = ("candidates", "slot_threads", "walk_threads", "iter_sum",
+                   "iter_max", "varying_sum", "varying_max", "folded_sum",
+                   "applied_sum", "wide_sum", "wide_max", "walk_sweeps",
+                   "walk_thread_sweeps", "cycles_march", "cycles_fold", "cycles_slots",
+                   "cycles_walk")
+_HIST, HIST_BINS = 20, 256
+N_COUNTERS = _HIST + 2 * HIST_BINS
 
 
 def _check(name, t, dtype, shape, device):
@@ -61,13 +84,81 @@ def _check_launch(name, feats_pairs, tile_start, tile_count, bg, width, height,
     return tiles_x, tiles_y
 
 
+def search_counters(device) -> torch.Tensor:
+    """A zeroed counters buffer for `blend_fwd` / `sample_cuda.sample_fwd`."""
+    return torch.zeros(N_COUNTERS, dtype=torch.int32, device=device)
+
+
+def check_search_args(name, slots, counters, device):
+    """Checks the median search's `slots` and `counters` -> counters' address
+    (0 for none), the buffer zeroed. The twins have no slots or counters:
+    on the CPU `counters` must be None."""
+    if not 0 <= slots <= MAX_SLOTS:
+        raise ValueError(f"{name}: slots must be in [0, {MAX_SLOTS}], got {slots}")
+    if counters is None:
+        return 0
+    if device.type != "cuda":
+        raise ValueError(f"{name}: search counters come from the kernel, on cuda")
+    _check("counters", counters, torch.int32, (N_COUNTERS,), device)
+    counters.zero_()
+    return counters.data_ptr()
+
+
+def search_stats(counters: torch.Tensor) -> dict:
+    """A filled counters buffer -> how the median search went: threads
+    searched (root in range) on each path, Newton evaluations per searched
+    thread, varying pairs per searched thread (percentiles from the
+    histogram, exact up to its last bin) at both cuts, the share of applied
+    pairs folded, re-walk sweeps (per block), the shares of warp cycles in
+    the march, the first sweep, the slots and the re-walks, and both
+    histograms trimmed after their last non-empty bin."""
+    c = [int(x) for x in counters.cpu()]
+    n = dict(zip(SEARCH_COUNTERS, c))
+    searched = n["slot_threads"] + n["walk_threads"]
+
+    def trim(h):
+        last = max((i for i, v in enumerate(h) if v), default=-1)
+        return h[:last + 1]
+
+    def pct(h, q):
+        acc, need = 0, q * sum(h)
+        for i, v in enumerate(h):
+            acc += v
+            if acc >= need and acc:
+                return i
+        return 0
+
+    cycles = sum(n[f"cycles_{k}"] for k in ("march", "fold", "slots", "walk"))
+    hist = c[_HIST:_HIST + HIST_BINS]
+    wide = c[_HIST + HIST_BINS:]
+    per = lambda k: n[k] / searched if searched else 0.0
+    return {"candidates": n["candidates"], "searched": searched,
+            "slot_share": per("slot_threads"), "walk_share": per("walk_threads"),
+            "iters_mean": per("iter_sum"), "iters_max": n["iter_max"],
+            "varying_mean": per("varying_sum"), "varying_p50": pct(hist, 0.5),
+            "varying_p99": pct(hist, 0.99), "varying_max": n["varying_max"],
+            "wide_mean": per("wide_sum"), "wide_p50": pct(wide, 0.5),
+            "wide_p99": pct(wide, 0.99), "wide_max": n["wide_max"],
+            "folded_share": n["folded_sum"] / n["applied_sum"] if n["applied_sum"] else 0.0,
+            "walk_sweeps": n["walk_sweeps"],
+            "walks_per_walker": n["walk_thread_sweeps"] / n["walk_threads"]
+            if n["walk_threads"] else 0.0,
+            "cycle_shares": {k: n[f"cycles_{k}"] / cycles if cycles else 0.0
+                             for k in ("march", "fold", "slots", "walk")},
+            "hist": trim(hist), "hist_wide": trim(wide)}
+
+
 def blend_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
               tile_count: torch.Tensor, width: int, height: int, fx: float,
-              fy: float, bg: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+              fy: float, bg: torch.Tensor, cfg: RasterConfig, slots: int = SLOTS,
+              counters: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile of a frame -> [16, H, W] float32 planes.
 
     feats_pairs [K, 16] float32 (render_ref.prepare_pairs), tile_start /
-    tile_count [T] int32, bg [3] float32, all on one device."""
+    tile_count [T] int32, bg [3] float32, all on one device. `slots`: the
+    median search's slots per pixel; `counters`: None, or a
+    `search_counters` buffer the kernel fills."""
+    ctr = check_search_args("blend_fwd", slots, counters, feats_pairs.device)
     if feats_pairs.device.type == "cpu":
         return render_ref.blend_planes(feats_pairs, tile_start, tile_count,
                                        width, height, fx, fy, bg, cfg)
@@ -81,9 +172,9 @@ def blend_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(),
-                tile_count.data_ptr(), bg.data_ptr(), out.data_ptr(),
+                tile_count.data_ptr(), bg.data_ptr(), out.data_ptr(), ctr,
                 width, height, tiles_x, tiles_y, cfg.tile, fx, fy,
-                cfg.max_per_tile, int(cfg.require_depth), cfg.alpha_clamp,
+                cfg.max_per_tile, int(cfg.require_depth), slots, cfg.alpha_clamp,
                 cfg.alpha_min, cfg.transmittance_min, cfg.sample_range,
                 cfg.min_transmittance, stream)
     if rc != 0:

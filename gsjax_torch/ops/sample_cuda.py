@@ -14,6 +14,8 @@ For tensors on the CPU each runs its plain-PyTorch twin
 (`sample_ref.sample_fwd_rows`, `integrate_rows`, `sample_bwd_rows`); for CUDA
 tensors each launches its kernel or raises. `sample_fwd.launches`,
 `integrate_fwd.launches` and `sample_bwd.launches` count kernel launches.
+`sample_fwd` takes B1's median-search arguments `slots` and `counters`
+(`render_cuda.blend_fwd`); B4 runs no search.
 
 `SampleDepth` is the differentiable query, as gsjax's `custom_vjp`
 `sample_depth_pallas`: its forward keeps the payload, the points, the lists
@@ -28,7 +30,7 @@ import torch
 from gsjax_torch import _build
 from gsjax_torch.ops import sample_ref
 from gsjax_torch.ops.raster.config import RasterConfig
-from gsjax_torch.ops.raster.render_cuda import _check
+from gsjax_torch.ops.raster.render_cuda import SLOTS, _check, check_search_args
 
 
 def _check_launch(name, feats_pairs, tile_start, tile_count, pts, blocks):
@@ -50,12 +52,15 @@ def _check_launch(name, feats_pairs, tile_start, tile_count, pts, blocks):
 
 def sample_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
                tile_count: torch.Tensor, pts: torch.Tensor, blocks: torch.Tensor,
-               cfg: RasterConfig) -> torch.Tensor:
+               cfg: RasterConfig, slots: int = SLOTS,
+               counters: torch.Tensor | None = None) -> torch.Tensor:
     """Median ray distance at each point -> [6, Q] float32 rows, sorted order.
 
     feats_pairs [K, 16] float32, tile_start / tile_count [T] int32, pts
     [Q, 2] float32 sorted by tile, blocks [NB, 3] int32 (tile, first point,
-    count <= 256), all on one device."""
+    count <= 256), all on one device. `slots`, `counters`: the median
+    search's, as `render_cuda.blend_fwd`'s."""
+    ctr = check_search_args("sample_fwd", slots, counters, feats_pairs.device)
     if feats_pairs.device.type == "cpu":
         return sample_ref.sample_fwd_rows(feats_pairs, tile_start, tile_count, pts,
                                           blocks, cfg)
@@ -68,8 +73,8 @@ def sample_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-                pts.data_ptr(), blocks.data_ptr(), out.data_ptr(), blocks.shape[0], q,
-                cfg.max_per_tile, cfg.alpha_clamp, cfg.alpha_min,
+                pts.data_ptr(), blocks.data_ptr(), out.data_ptr(), ctr, blocks.shape[0],
+                q, cfg.max_per_tile, slots, cfg.alpha_clamp, cfg.alpha_min,
                 cfg.transmittance_min, cfg.sample_range, cfg.min_transmittance,
                 stream)
     if rc != 0:

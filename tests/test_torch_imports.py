@@ -1,4 +1,5 @@
-"""gsjax_torch and chip_smoke.py import neither jax nor anything of gsjax: the
+"""gsjax_torch and the scripts that run on the card (chip_smoke.py,
+probe_search.py, ab_port.py) import neither jax nor anything of gsjax: the
 card's machine has no jax, and importing any gsjax module imports it."""
 
 import ast
@@ -9,7 +10,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = sorted((ROOT / "gsjax_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "gsjax_torch").rglob("*.py")) + [
+    ROOT / name for name in ("chip_smoke.py", "probe_search.py", "ab_port.py")]
 
 
 def _forbidden(name: str) -> bool:
