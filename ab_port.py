@@ -7,10 +7,12 @@ ROOT (default: this file's directory) is the checkout whose `gsjax_torch`
 and `chip_smoke.py` are imported; its kernels build into ROOT/build. Prints
 one JSON line of CUDA-event milliseconds at chip_smoke's workloads
 (1920x1080, bench.py's 100k gaussians): B1 with and without the median
-depth, B2, B3 on the multi-view query and on the tetra points of a
-100k-gaussian sphere, B4 on those points, B5, B6, a whole `render()`, a
-train step with regularisation and one with the multi-view losses, beside
-the card's name and power limit. To compare commits, unpack the other one
+depth, B2 with and without it, B3 on the multi-view query and on the tetra
+points of a 100k-gaussian sphere, B4 on those points, B5, B6, a whole
+`render()`, a train step with regularisation and one with the multi-view
+losses, beside the card's name and power limit; where the checkout's
+backward kernels have profile counters, also B2's and B5's readings of
+them (`render_cuda.bwd_stats`). To compare commits, unpack the other one
 under build/ and run the two in turns (A, B, B, A) on the same machine.
 """
 
@@ -67,6 +69,16 @@ def main(argv=None):
     grad = cs.bench_cotangent(planes, gt, True)
     out["b2_ms"] = cs.event_ms(lambda: render_cuda.blend_bwd(*lists, planes, grad, *tail, cfg),
                                reps=REPS)
+    profiled = hasattr(render_cuda, "bwd_counters")
+    if profiled:
+        ctr = render_cuda.bwd_counters(dev)
+        render_cuda.blend_bwd(*lists, planes, grad, *tail, cfg, counters=ctr)
+        out["b2_profile"] = render_cuda.bwd_stats(ctr)
+    planes_nd = render_cuda.blend_fwd(*lists, *tail, cfg_nd)
+    grad_nd = cs.bench_cotangent(planes_nd, gt, False)
+    out["b2_no_depth_ms"] = cs.event_ms(lambda: render_cuda.blend_bwd(
+        *lists, planes_nd, grad_nd, *tail, cfg_nd), reps=REPS)
+    del planes_nd, grad_nd
     out["render_ms"] = cs.event_ms(lambda: render(*scene, cam, cfg, bg))
     del planes, grad, feats, binning
 
@@ -91,6 +103,10 @@ def main(argv=None):
     cot = torch.randn(qr.pts.shape[0], generator=gen, device=dev)
     out["b5_ms"] = cs.event_ms(lambda: sample_cuda.sample_bwd(*q_lists, rows, cot, cfg),
                                reps=REPS)
+    if profiled:
+        ctr = render_cuda.bwd_counters(dev)
+        sample_cuda.sample_bwd(*q_lists, rows, cot, cfg, counters=ctr)
+        out["b5_profile"] = render_cuda.bwd_stats(ctr)
     un, vn = cs.scene_taps(sc)
     gray_n = sc["gray"][1]
     out["b6_ms"] = cs.event_ms(lambda: ws.warp_sample(gray_n, un, vn), reps=REPS)

@@ -14,7 +14,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               median slots and at slots=0 (every search re-walks the list);
   parity_bwd  kernel B2 against its twin `render_ref.blend_bwd_planes` on the
               same B1 planes and seeded cotangent, per pair and per gaussian,
-              at both sizes, with and without the median depth;
+              at both sizes, with and without the median depth, and a second
+              B2 launch on the same inputs equal to the first bit for bit;
   slice       the render CLI (`gsjax_torch.render.main`) on a 4-view
               1920x1080 COLMAP scene and a 100k-gaussian PLY made from a
               seed; B1's launches must equal the number of views;
@@ -36,7 +37,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the slot path and on the re-walk, Newton evaluations, varying
               pairs per thread (p50, p99, max, at the 6-sigma fold and at 14.5
               sigma), the folded share of applied pairs, and the kernel's time
-              at the default slots beside slots=0;
+              at the default slots beside slots=0; a second B1 line on the
+              same scene 60 times as far (z ~ 300, `far_scene`), whose mean
+              Newton evaluations must stay within 0.5 of the near scene's;
+  bwd_profile where the warp cycles of B2 (1920x1080 / 100k, with and
+              without depth) and of B5 (the multi-view query) go, from the
+              kernels' profile counters: warp-pairs walked, the share with an
+              applying lane, applying lanes and interactions per such
+              warp-pair, and the cycle shares of the setup, the staging and
+              barriers, the alpha test, the applied math and the reduction;
+              the kernel's time with and without the counters;
   timing_train  B2 with and without depth and its bound, bench.py's
               fwd+bwd loss as rays/s, a train step with regularisation on and
               off with its stage split and peak memory, and a profiler
@@ -128,15 +138,17 @@ DD_RTOL, DD_ATOL, DD_FRAC = 1e-2, 1e-3, 0.999
 # B2 against its twin on the same B1 planes and cotangent. Errors are taken
 # per payload column, relative to the column's largest |twin| entry (the
 # columns differ by orders of magnitude). The kernel sums each pair's
-# per-pixel terms with warp shuffles and atomicAdd in no fixed order and
-# carries T multiplicatively; the twin sums in log space and in another
-# order: BWD_TOL / BWD_FRAC bound the rounding. A pair whose alpha test or
-# stop flips between the two evaluation orders moves its pixel's terms as a
-# whole: BWD_MAX bounds every entry, GAUSS_* the per-gaussian sums after
-# the scatter. Read on the card (H100, 640x360 / 20k and 1080p / 100k, with
-# and without depth): every pair within 3.6e-5 and every gaussian within
-# 1.9e-5 (largest in the ray-plane columns); no flip seen. Limits: 1e-4 on
-# >= 99.99% of pairs and gaussians, every one within 1e-3.
+# per-pixel terms in registers, warp shuffles and shared memory in a fixed
+# order (the same bits from run to run) and carries T multiplicatively; the
+# twin sums in log space and in another order: BWD_TOL / BWD_FRAC bound the
+# rounding. A pair whose alpha test or stop flips between the two
+# evaluation orders moves its pixel's terms as a whole: BWD_MAX bounds every
+# entry, GAUSS_* the per-gaussian sums after the scatter. Read on the card
+# (H100, 640x360 / 20k and 1080p / 100k, with and without depth): every
+# pair within 5.1e-5 (1.2e-5 with depth) and every gaussian within 2.2e-5,
+# the largest a mean2d column without depth, where a pair's blend term
+# cancels against T q; no flip seen. Limits: 1e-4 on >= 99.99% of pairs and
+# gaussians, every one within 1e-3.
 BWD_TOL, BWD_FRAC, BWD_MAX = 1e-4, 0.9999, 1e-3
 GAUSS_TOL, GAUSS_FRAC, GAUSS_MAX = 1e-4, 0.9999, 1e-3
 
@@ -199,6 +211,11 @@ INT_TOL, INT_FRAC, INT_GSJAX, INT_MAX = 1e-4, 0.9999, 5e-4, 5e-3
 MESH_RADIUS = 0.01
 MESH_CHUNK = 1 << 20      # points per integrate call (evaluate_alpha_cull)
 MESH_STEPS = 10           # binary-search steps of the tetra route
+# The far scene of the second B1 `search` line: bench.py's scene this many
+# times as far from the camera (z ~ 300), where a float32 ulp of the ray
+# distance exceeds the Newton exit's absolute tolerance (median.cuh).
+FAR = 60.0
+FAR_ITERS = 0.5           # |mean evaluations far - near| (read 0.38; CPU emulation 0.29)
 
 
 def emit(obj):
@@ -436,6 +453,7 @@ def phase_parity_bwd(width, height, n, dev, require_depth):
     grad[:rows] = torch.randn((rows, height, width), generator=gen, device=dev)
     tail = (width, height, cam.fx, cam.fy, bg, cfg)
     d_k = render_cuda.blend_bwd(*lists, planes, grad, *tail)
+    repeat_equal = torch.equal(d_k, render_cuda.blend_bwd(*lists, planes, grad, *tail))
     torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
@@ -460,10 +478,12 @@ def phase_parity_bwd(width, height, n, dev, require_depth):
            "gauss_close_frac": float((gerr[touched] <= GAUSS_TOL).double().mean()),
            "col_max_err": [float(x) for x in col_err],
            "finite": bool(torch.isfinite(d_k).all()),
+           "repeat_bitwise_equal": repeat_equal,
            "nonzero_cols": int((d_t.abs().amax(0) > 0).sum())}
     emit({"phase": "parity_bwd", "width": width, "height": height, "gaussians": n,
           "require_depth": require_depth, **out})
     check(out["finite"], "B2 output not finite")
+    check(repeat_equal, "two B2 launches on the same inputs differ")
     check(out["nonzero_cols"] == (16 if require_depth else 12),
           f"twin gradient has {out['nonzero_cols']} non-zero columns")
     check(out["pair_close_frac"] >= BWD_FRAC, f"B2 pairs close on {out['pair_close_frac']}")
@@ -765,6 +785,37 @@ def phase_search(kernel, launch, dev, **where):
     return st
 
 
+def far_scene(g, cfg, scale=FAR):
+    """bench.py's scene `scale` times as far from its camera (at the origin):
+    positions and scales times `scale`, and the near plane and the median's
+    search range with them, so the image is the same and every depth `scale`
+    times larger."""
+    means, scales, quats, opac, shs = g
+    return ((means * scale, scales * scale, quats, opac, shs),
+            dataclasses.replace(cfg, sample_range=cfg.sample_range * scale,
+                                near_plane=cfg.near_plane * scale))
+
+
+def phase_bwd_profile(kernel, launch, dev, **where):
+    """Where the warp cycles of backward kernel `kernel` go:
+    `launch(counters)` runs it once. Its profile counters
+    (`render_cuda.bwd_stats`), its time without them and with them."""
+    from gsjax_torch.ops.raster import render_cuda
+
+    ctr = render_cuda.bwd_counters(dev)
+    launch(ctr)
+    st = render_cuda.bwd_stats(ctr)
+    ms = event_ms(lambda: launch(None))
+    profiled_ms = event_ms(lambda: launch(ctr))
+    emit({"phase": "bwd_profile", "kernel": kernel, **where, "ms": ms,
+          "profiled_ms": profiled_ms, **st})
+    check(st["warp_pairs_active"] > 0 and st["applied"] > 0,
+          f"{kernel}: no pair applied in the profile")
+    check(st["warp_pairs_active"] <= st["warp_pairs"] and st["warp_cycles"] > 0,
+          f"{kernel}: profile counters do not add up")
+    return st
+
+
 def phase_timing(dev, twin_ms, width=1920, height=1080, n=100_000):
     import torch
 
@@ -792,9 +843,19 @@ def phase_timing(dev, twin_ms, width=1920, height=1080, n=100_000):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     bound = kernel_bound_ms(blend(), feats, binning, cfg, width, height)
-    phase_search("blend_fwd", lambda s, c: render_cuda.blend_fwd(
+    near = phase_search("blend_fwd", lambda s, c: render_cuda.blend_fwd(
         feats, binning.tile_start, binning.tile_count, width, height, cam.fx, cam.fy, bg,
-        cfg, slots=s, counters=c), dev, width=width, height=height, gaussians=n)
+        cfg, slots=s, counters=c), dev, width=width, height=height, gaussians=n, scale=1.0)
+    g_far, cfg_far = far_scene(bench_gaussians(n), cfg)
+    _, _, b_far, f_far = stages(g_far, cam, cfg_far, dev)
+    far = phase_search("blend_fwd", lambda s, c: render_cuda.blend_fwd(
+        f_far, b_far.tile_start, b_far.tile_count, width, height, cam.fx, cam.fy, bg,
+        cfg_far, slots=s, counters=c), dev, width=width, height=height, gaussians=n,
+        scale=FAR, near_iters_mean=near["iters_mean"])
+    del f_far, b_far
+    check(abs(far["iters_mean"] - near["iters_mean"]) <= FAR_ITERS,
+          f"B1 Newton evaluations {far['iters_mean']} at z ~ 300 against "
+          f"{near['iters_mean']} near")
     emit({"phase": "timing", "width": width, "height": height, "gaussians": n,
           "pairs": binning.num_live, "enumerated_pairs": binning.num_pairs,
           "max_tile_count": binning.max_tile_count,
@@ -860,6 +921,9 @@ def phase_timing_train(dev, width=1920, height=1080, n=100_000):
         out[f"b1_{name}_ms"] = event_ms(lambda: render_cuda.blend_fwd(*lists, *tail, c))
         out[f"b2_{name}_ms"] = event_ms(
             lambda: render_cuda.blend_bwd(*lists, planes, grad, *tail, c))
+        phase_bwd_profile("blend_bwd", lambda ctr: render_cuda.blend_bwd(
+            *lists, planes, grad, *tail, c, counters=ctr), dev, width=width,
+            height=height, gaussians=n, require_depth=c.require_depth)
     bound = bwd_bound_ms(b2["depth"][0], feats, binning, cfg, width, height)
 
     # bench.py's step: render + 0.8 L1 + 0.2 (1 - SSIM) + 1e-6 mean depth, fwd+bwd
@@ -1188,6 +1252,14 @@ def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
     out = {"points": int(qr.pts.shape[0])}
     out["b3_ms"] = event_ms(lambda: sample_cuda.sample_fwd(*lists, cfg))
     out["b5_ms"] = event_ms(lambda: sample_cuda.sample_bwd(*lists, res, g, cfg))
+    per_tile = torch.bincount(qr.blocks[:, 0].long())
+    per_tile = per_tile[per_tile > 0]
+    phase_bwd_profile("sample_bwd", lambda ctr: sample_cuda.sample_bwd(
+        *lists, res, g, cfg, counters=ctr), dev, points=int(qr.pts.shape[0]),
+        blocks=int(qr.blocks.shape[0]), tiles=int(per_tile.numel()),
+        tiles_multi_block=int((per_tile > 1).sum()),
+        blocks_in_multi_block_tiles=int(per_tile[per_tile > 1].sum()),
+        max_blocks_per_tile=int(per_tile.max()))
     b3_bound, b5_bound = sample_bounds(qr, res, g, cfg)
     phase_search("sample_fwd", lambda s, c: sample_cuda.sample_fwd(
         *lists, cfg, slots=s, counters=c), dev, points=int(qr.pts.shape[0]))

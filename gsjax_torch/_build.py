@@ -47,6 +47,7 @@ KERNELS = {
     "blend_bwd": ("csrc/blend_bwd.cu", "gsjax_blend_bwd", [
         _P, _P, _P, _P, _P, _P, _P,    # feats, tile_start, tile_count, planes,
                                        # grad, bg, d_feats
+        _P,                            # counters
         _I, _I, _I, _I, _I,            # width, height, tiles_x, tiles_y, tile
         _F, _F,                        # fx, fy
         _I, _I,                        # max_per_tile, require_depth
@@ -71,7 +72,7 @@ KERNELS = {
     "sample_bwd": ("csrc/sample_bwd.cu", "gsjax_sample_bwd", [
         _P, _P, _P, _P, _P, _P, _P,    # feats, tile_start, tile_count, pts,
                                        # blocks, res, g
-        _P, _P,                        # d_feats, d_pts
+        _P, _P, _P,                    # d_feats, d_pts, counters
         _I, _I, _I,                    # n_blocks, q, max_per_tile
         _F, _F,                        # alpha_clamp, alpha_min
         _P,                            # cudaStream_t

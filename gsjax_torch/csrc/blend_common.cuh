@@ -1,8 +1,9 @@
-// Pieces shared by the forward (blend_fwd.cu, B1) and backward
-// (blend_bwd.cu, B2) tile-blend kernels: the thread-block geometry, the
-// shared-memory staging of a tile's pair payload, the alpha test and a
-// block-wide max. Both kernels run one thread per pixel; a 32x32 binning
-// tile is four 16x16 blocks, each walking the tile's whole list.
+// Pieces shared by the tile-blend and point kernels (blend_fwd.cu B1,
+// blend_bwd.cu B2, sample_fwd.cu B3 / B4, sample_bwd.cu B5): the thread-block
+// size, the shared-memory staging of a tile's pair payload, the alpha test
+// and a block-wide max. B1 runs one thread per pixel, a 32x32 binning tile as
+// four 16x16 blocks, each walking the tile's whole list; B2 runs a tile as
+// one block of the same 256 threads, four pixels a thread.
 #pragma once
 
 #include <cuda_runtime.h>

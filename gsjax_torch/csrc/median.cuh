@@ -39,8 +39,9 @@
 //     staging, no barrier, no alpha test, no log1p. Each evaluation also
 //     folds its slots again against the bracket, which only narrows, so the
 //     set shrinks as Newton converges. It leaves the loop once the iterate
-//     (or the Newton step) moves by at most kStepTol, or after kNewtonIters
-//     evaluations, and evaluates dlogT/dt at the root on its slots too.
+//     (or the Newton step) moves by at most kStepTol (2-4 ulps of t where t
+//     is far), or after kNewtonIters evaluations, and evaluates dlogT/dt at
+//     the root on its slots too.
 //   - Overflow: a thread whose varying set does not fit (every thread that
 //     has varying pairs, with no slots) re-walks the staged list for its next
 //     evaluation, with the same terms and the same exit, after the slot
@@ -62,8 +63,12 @@ namespace blend {
 // up to 0.3 wide), 12 with the test converge on every pixel measured.
 constexpr int kNewtonIters = 12;
 // Leave Newton once the iterate moves by at most this (ray distance); the
-// twin's 8-way x 5-round bisection resolves 0.8 / 8^5 = 2.4e-5.
+// twin's 8-way x 5-round bisection resolves 0.8 / 8^5 = 2.4e-5. Far away the
+// tolerance is relative: kStepRel |t| (two float32 epsilons, 2-4 ulps of t),
+// since from t = 256 on an ulp exceeds 2 kStepTol and a step between the
+// absolute tolerance and half an ulp rounds onto the bracket end.
 constexpr float kStepTol = 1e-5f;
+constexpr float kStepRel = 2.f * 1.1920928955078125e-7f;
 constexpr float kFoldCut = 6.f;           // exact value fold (see above)
 constexpr float kWideCut = 14.5f;         // exact value and d/dt (counted only)
 constexpr float kLogHalf = -0.69314718055994531f;
@@ -263,8 +268,9 @@ struct Newton {
     // converged: the iterate stands still, or the Newton step is below the
     // tolerance (once it is below an ulp of t, t_n rounds onto the bracket
     // end t and the bracket test alone would send it to bisection)
-    done = ++iters >= kNewtonIters || fabsf(t_next - t) <= kStepTol ||
-           (ok && fabsf(step) <= kStepTol);
+    const float tol = fmaxf(kStepTol, kStepRel * fabsf(t));
+    done = ++iters >= kNewtonIters || fabsf(t_next - t) <= tol ||
+           (ok && fabsf(step) <= tol);
     t = t_next;
   }
 

@@ -19,30 +19,33 @@
 // What bounds it on an H100: operations. Each pair is read once per block
 // and evaluated against every point of the block: the alpha test (~16 fp32
 // operations with one exp) and, where applied, ~70 more with an exp for the
-// median term and the chain. The reduce over points is the design's own
-// cost: 10 warp sums (5 shuffles each) and 10 atomicAdds per (warp, pair)
-// where any lane of the warp applies the pair.
+// median term and the chain. The sum over points is the design's own cost:
+// as five-shuffle warp sums and global atomicAdds it would take 10 of each
+// per (warp, pair) where any lane of the warp applies the pair.
 //
-// Design (B2's, blend_bwd.cu, over B3's block table): one thread per point,
-// a block per (tile, up to 256 of its points); the block walks its tile's
-// list up to the largest n_contrib among its points with s != 0, staging 256
-// pairs at a time in shared memory; per pair, a warp with any applying lane
-// reduces the 10 columns with __shfl_down_sync and lane 0 adds them with
-// atomicAdd; a warp with none skips the pair (__any_sync). A point is owned
-// by one thread, so its d(px), d(py) stay in registers and are written once.
+// Design (B2's reduction, blend_bwd.cu and bwd_common.cuh, over B3's block
+// table): one thread per point, a block per (tile, up to 256 of its points);
+// the block walks its tile's list up to the largest n_contrib among its
+// points with s != 0, kWin = 64 pairs a window staged in shared memory, a
+// warp stopping at its own points' largest and skipping a pair none of them
+// applies (__ballot_sync). Per pair a thread's terms sit in registers in
+// payload-column order (16, six of them always 0), the warp reduces them by
+// recursive halving and the block adds its warps' sums in a fixed order once
+// a window. A tile with one point block (its points fit 256) writes each
+// pair's row with plain stores; where a tile's points span several blocks
+// (consecutive in the table, `ops/sample.py:point_blocks`), each block adds
+// its row with one atomicAdd per (block, pair, column), 10 columns. A point
+// is owned by one thread, so its d(px), d(py) stay in registers and are
+// written once.
 
 #include <cuda_runtime.h>
 
 #include "blend_common.cuh"
+#include "bwd_common.cuh"
 
 namespace {
 
 using namespace blend;
-
-constexpr int kCols = 10;
-// payload column of each accumulated term: mean2d (0, 1), conic (2-4),
-// opacity (5), ray-depth plane (9-11), rsigma (12)
-__constant__ int kColOf[kCols] = {0, 1, 2, 3, 4, 5, 9, 10, 11, 12};
 
 struct SampleBwdParams {
   const float* feats;       // [K, 16] pair payload, tile-major, front to back
@@ -54,26 +57,33 @@ struct SampleBwdParams {
   const float* g;           // [Q] cotangent of m_t
   float* d_feats;           // [K, 16], zeroed by the caller
   float* d_pts;             // [Q, 2]
-  int q, max_per_tile;
+  unsigned long long* counters;   // bwd::Counter, or nullptr
+  int n_blocks, q, max_per_tile;
   float alpha_clamp, alpha_min;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
+// Whether payload column c is one B5 writes: mean2d (0, 1), conic (2-4),
+// opacity (5), ray-depth plane (9-11), rsigma (12).
+__device__ __forceinline__ bool written(int c) { return c <= 5 || (c >= 9 && c <= 12); }
 
+template <bool PROFILE>
 __global__ void __launch_bounds__(kThreads)
 sample_bwd_kernel(const SampleBwdParams p) {
-  __shared__ Batch s;
+  __shared__ bwd::Window win;
   __shared__ int s_max;
+  bwd::Profile<PROFILE> prof;
+  prof.start();
 
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int* blk = p.blocks + 3 * blockIdx.x;
   const int tile = blk[0];
-  const int qi = blk[1] + static_cast<int>(threadIdx.x);
-  const bool active = static_cast<int>(threadIdx.x) < blk[2];
+  const int qi = blk[1] + tid;
+  const bool active = tid < blk[2];
   const int start = p.tile_start[tile];
   const int count = min(p.tile_count[tile], p.max_per_tile);
+  // another block holds points of this tile: add rows, do not store them
+  const bool shared_tile = (blockIdx.x > 0 && blk[-3] == tile) ||
+                           (blockIdx.x + 1 < p.n_blocks && blk[3] == tile);
 
   // --- per-point residuals (sample_pallas.py:290-315) ----------------------
   float px = 0.f, py = 0.f, m_t = 0.f, s_pt = 0.f;
@@ -90,32 +100,41 @@ sample_bwd_kernel(const SampleBwdParams p) {
     }
     if (s_pt != 0.f) my_n = min(static_cast<int>(r[2 * qs]), count);
   }
+  const int warp_n = __reduce_max_sync(bwd::kAll, my_n);
   const int nmax = block_max(my_n, &s_max);
-  const int lane = threadIdx.x & 31;
+  prof.lap(bwd::kCyclesSetup);
 
-  // --- re-walk the list up to n_contrib -------------------------------------
+  // --- re-walk the list up to n_contrib, a window at a time ------------------
   float dpx = 0.f, dpy = 0.f;
-  for (int b0 = 0; b0 < nmax; b0 += kBatch) {
-    __syncthreads();                    // the previous batch is consumed
-    const int n = min(kBatch, nmax - b0);
-    stage(p.feats, s, start, b0, n);
+  for (int b0 = 0; b0 < nmax; b0 += bwd::kWin) {
+    const int n = min(bwd::kWin, nmax - b0);
+    __syncthreads();                    // the previous window is summed
+    bwd::stage_window(p.feats, win, start, b0, n, tid);
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      float d[kCols];
-#pragma unroll
-      for (int k = 0; k < kCols; ++k) d[k] = 0.f;
+    prof.lap(bwd::kCyclesStage);
+    unsigned long long mask = 0;
+    const int jn = min(n, warp_n - b0);   // uniform over the warp
+    for (int j = 0; j < jn; ++j) {
       float alpha, expp, dx, dy;
-      const float4 q0 = s[j][0], q1 = s[j][1];
+      const float4 q0 = win.pairs[j][0], q1 = win.pairs[j][1];
       const bool on = b0 + j < my_n &&
                       pair_alpha(p.alpha_clamp, p.alpha_min, q0, q1, px, py,
                                  alpha, expp, dx, dy);
-      if (!__any_sync(0xffffffffu, on)) continue;
+      const unsigned act = __ballot_sync(bwd::kAll, on);
+      prof.pair(act, on);
+      prof.lap(bwd::kCyclesAlpha);
+      if (!act) continue;
+      mask |= 1ull << j;
+      float d[kF];
+#pragma unroll
+      for (int c = 0; c < kF; ++c) d[c] = 0.f;
       if (on) {
         // implicit median term (sample_pallas.py:326-341)
-        const float4 q2 = s[j][2];
-        const float rsig = s[j][3].x;
+        const float4 q2 = win.pairs[j][2];
+        const float rsig = win.pairs[j][3].x;
         const float t_val = q2.y * dx + q2.z * dy + q2.w;
-        const float delta = (m_t - t_val) * rsig;
+        const float gap = m_t - t_val;
+        const float delta = gap * rsig;
         const float hg = rsig > 0.f ? expf(-0.5f * delta * delta) : 0.f;
         const float half_r = 0.5f / fmaxf(1.f - alpha * hg, 1e-12f);
         const bool behind = m_t > t_val;
@@ -132,22 +151,39 @@ sample_bwd_kernel(const SampleBwdParams p) {
         d[3] = -d_pow * dx * dy;
         d[4] = -0.5f * d_pow * dy * dy;
         d[5] = notclamped ? d_a * expp : 0.f;
-        d[6] = d_tp * dx;
-        d[7] = d_tp * dy;
-        d[8] = d_tp;
-        d[9] = rsig > 0.f ? s_pt * dlf_dg * (-hg * delta * delta) / rsig : 0.f;
+        d[9] = d_tp * dx;
+        d[10] = d_tp * dy;
+        d[11] = d_tp;
+        // d/d(rsig) = s dlf_dg (-hg delta^2 / rsig), delta^2 / rsig = delta gap
+        d[12] = rsig > 0.f ? s_pt * dlf_dg * (-hg * delta * gap) : 0.f;
         // the point's own gradient (:385-387)
         dpx -= d[0];
         dpy -= d[1];
       }
-      float* dst = p.d_feats + (static_cast<size_t>(start) + b0 + j) * kF;
+      prof.lap(bwd::kCyclesApply);
+      bwd::put_partial(win, warp, j, lane, bwd::warp_reduce_16(d, lane));
+      prof.lap(bwd::kCyclesReduce);
+    }
+    if (lane == 0) win.mask[warp] = mask;
+    __syncthreads();
+    prof.lap(bwd::kCyclesStage);
+    // the block's sum: pair tid / 4, columns 4 (tid % 4) .. + 3
+    const int j = tid >> 2, c4 = (tid & 3) * 4;
+    if (j < n) {
+      const float4 v = bwd::window_sum(win, j, c4);
+      float* dst = p.d_feats + (static_cast<size_t>(start) + b0 + j) * kF + c4;
+      if (!shared_tile) {
+        *reinterpret_cast<float4*>(dst) = v;
+      } else {
+        const float vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int k = 0; k < kCols; ++k) {
-        const float v = warp_sum(d[k]);
-        if (lane == 0 && v != 0.f) atomicAdd(dst + kColOf[k], v);
+        for (int c = 0; c < 4; ++c)
+          if (written(c4 + c) && vs[c] != 0.f) atomicAdd(dst + c, vs[c]);
       }
     }
+    prof.lap(bwd::kCyclesReduce);
   }
+  prof.flush(p.counters, lane);
   if (active) {
     p.d_pts[2 * static_cast<size_t>(qi)] = dpx;
     p.d_pts[2 * static_cast<size_t>(qi) + 1] = dpy;
@@ -161,13 +197,17 @@ extern "C" int gsjax_sample_bwd(const float* feats, const int* tile_start,
                                 const int* tile_count, const float* pts,
                                 const int* blocks, const float* res,
                                 const float* g, float* d_feats, float* d_pts,
-                                int n_blocks, int q, int max_per_tile,
-                                float alpha_clamp, float alpha_min,
-                                void* stream) {
+                                void* counters, int n_blocks, int q,
+                                int max_per_tile, float alpha_clamp,
+                                float alpha_min, void* stream) {
   const SampleBwdParams p{feats, tile_start, tile_count, pts, blocks, res, g,
-                          d_feats, d_pts, q, max_per_tile, alpha_clamp,
-                          alpha_min};
-  sample_bwd_kernel<<<n_blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(p);
+                          d_feats, d_pts,
+                          static_cast<unsigned long long*>(counters), n_blocks,
+                          q, max_per_tile, alpha_clamp, alpha_min};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (counters != nullptr)
+    sample_bwd_kernel<true><<<n_blocks, kThreads, 0, st>>>(p);
+  else
+    sample_bwd_kernel<false><<<n_blocks, kThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

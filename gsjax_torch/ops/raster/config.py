@@ -15,7 +15,8 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
     # Tile geometry: 32x32 keeps the binning identical to gsjax; the CUDA
-    # blend runs each tile as four 16x16 thread blocks.
+    # blend forward runs each tile as four 16x16 thread blocks, its backward
+    # as one block of 256 threads (and takes 32 only).
     tile: int = 32
     # Gaussians per step of the plain-PyTorch blend (render_ref).
     chunk: int = 64

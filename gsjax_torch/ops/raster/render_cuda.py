@@ -14,7 +14,10 @@ B1's median search (`csrc/median.cuh`, shared with B3) keeps each pixel's
 varying pairs in `slots` slots of shared memory and re-walks the list
 for a pixel whose set does not fit; `slots=0` sends every pixel down that
 re-walk. An optional int32 `counters` buffer (`search_counters`) is filled
-by the kernel with how the search went, read by `search_stats`.
+by the kernel with how the search went, read by `search_stats`. B2 (and B5,
+`sample_cuda.sample_bwd`) takes an optional int64 `counters` buffer
+(`bwd_counters`) of where its warp cycles go, read by `bwd_stats`; B2 takes
+the binning tile of 32 only (one block a tile).
 
 `Blend` is the differentiable blend, as gsjax's `custom_vjp` `blend_pallas`:
 its forward runs a forward blend and keeps the payload, the lists and the
@@ -30,7 +33,8 @@ from gsjax_torch import _build
 from gsjax_torch.ops.raster import render_ref
 from gsjax_torch.ops.raster.config import RasterConfig
 
-_SIDE = 16  # pixels per side of the kernels' thread block
+_SIDE = 16  # pixels per side of B1's thread block
+_BWD_TILE = 32  # B2 runs one block per 32x32 binning tile
 
 # Median slots per pixel or point (12 B each, 256 threads a block, so
 # slots x 3 KB of shared memory a block; 32 leave two blocks an SM), chosen
@@ -48,6 +52,15 @@ SEARCH_COUNTERS = ("candidates", "slot_threads", "walk_threads", "iter_sum",
                    "cycles_walk")
 _HIST, HIST_BINS = 20, 256
 N_COUNTERS = _HIST + 2 * HIST_BINS
+# The backward kernels' profile counters (B2, B5), in the order of
+# bwd_common.cuh:Counter, int64: warp-pairs walked (one warp's step over one
+# staged pair), those where some lane applies the pair, the applying lanes
+# and the applied interactions summed over those, and warp cycles (clock64,
+# summed over warps) in the setup, the staging and barriers, the alpha test
+# and skip, the applied math, and the reduction with its writes.
+BWD_COUNTERS = ("warp_pairs", "warp_pairs_active", "lanes_active", "applied",
+                "cycles_setup", "cycles_stage", "cycles_alpha", "cycles_apply",
+                "cycles_reduce")
 
 
 def _check(name, t, dtype, shape, device):
@@ -102,6 +115,44 @@ def check_search_args(name, slots, counters, device):
     _check("counters", counters, torch.int32, (N_COUNTERS,), device)
     counters.zero_()
     return counters.data_ptr()
+
+
+def bwd_counters(device) -> torch.Tensor:
+    """A zeroed profile buffer for `blend_bwd` / `sample_cuda.sample_bwd`."""
+    return torch.zeros(len(BWD_COUNTERS), dtype=torch.int64, device=device)
+
+
+def check_bwd_counters(name, counters, device):
+    """Checks a backward kernel's `counters` -> its address (0 for none), the
+    buffer zeroed. The twins have no counters: on the CPU it must be None."""
+    if counters is None:
+        return 0
+    if device.type != "cuda":
+        raise ValueError(f"{name}: profile counters come from the kernel, on cuda")
+    _check("counters", counters, torch.int64, (len(BWD_COUNTERS),), device)
+    counters.zero_()
+    return counters.data_ptr()
+
+
+def bwd_stats(counters: torch.Tensor) -> dict:
+    """A filled `bwd_counters` buffer -> where the backward's warp cycles
+    went: warp-pairs walked, the share with an applying lane, applying lanes
+    and interactions per such warp-pair, the cycle shares by part, and
+    cycles per warp-pair (alpha) or per active warp-pair (apply, reduce)."""
+    n = dict(zip(BWD_COUNTERS, (int(x) for x in counters.cpu())))
+    parts = [k[len("cycles_"):] for k in BWD_COUNTERS if k.startswith("cycles_")]
+    cycles = sum(n[f"cycles_{k}"] for k in parts)
+    walked, active = n["warp_pairs"], n["warp_pairs_active"]
+    per = lambda v, d: v / d if d else 0.0
+    return {"warp_pairs": walked, "warp_pairs_active": active, "applied": n["applied"],
+            "active_share": per(active, walked),
+            "lanes_per_active": per(n["lanes_active"], active),
+            "applied_per_active": per(n["applied"], active),
+            "warp_cycles": cycles,
+            "cycle_shares": {k: per(n[f"cycles_{k}"], cycles) for k in parts},
+            "cycles_per_warp_pair": {"alpha": per(n["cycles_alpha"], walked),
+                                     "apply": per(n["cycles_apply"], active),
+                                     "reduce": per(n["cycles_reduce"], active)}}
 
 
 def search_stats(counters: torch.Tensor) -> dict:
@@ -189,18 +240,24 @@ blend_fwd.launches = 0
 def blend_bwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
               tile_count: torch.Tensor, planes: torch.Tensor,
               grad_planes: torch.Tensor, width: int, height: int, fx: float,
-              fy: float, bg: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+              fy: float, bg: torch.Tensor, cfg: RasterConfig,
+              counters: torch.Tensor | None = None) -> torch.Tensor:
     """VJP of `blend_fwd` w.r.t. the pair payload -> d_feats [K, 16] float32.
 
     planes [16, H, W]: `blend_fwd`'s output for these arguments; grad_planes
-    [16, H, W]: its cotangent (rows 0-7 read). Other arguments as
+    [16, H, W]: its cotangent (rows 0-7 read); `counters`: None, or a
+    `bwd_counters` buffer the kernel fills. Other arguments as
     `blend_fwd`."""
+    ctr = check_bwd_counters("blend_bwd", counters, feats_pairs.device)
     if feats_pairs.device.type == "cpu":
         return render_ref.blend_bwd_planes(feats_pairs, tile_start, tile_count,
                                            planes, grad_planes, width, height,
                                            fx, fy, bg, cfg)
     tiles_x, tiles_y = _check_launch("blend_bwd", feats_pairs, tile_start,
                                      tile_count, bg, width, height, cfg)
+    if cfg.tile != _BWD_TILE:
+        raise ValueError(f"the CUDA blend backward takes {_BWD_TILE}x{_BWD_TILE} "
+                         f"tiles, got {cfg.tile}")
     dev = feats_pairs.device
     _check("planes", planes, torch.float32, (render_ref.N_PLANES, height, width), dev)
     _check("grad_planes", grad_planes, torch.float32,
@@ -213,7 +270,7 @@ def blend_bwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(),
                 tile_count.data_ptr(), planes.data_ptr(), grad_planes.data_ptr(),
-                bg.data_ptr(), d_feats.data_ptr(), width, height, tiles_x,
+                bg.data_ptr(), d_feats.data_ptr(), ctr, width, height, tiles_x,
                 tiles_y, cfg.tile, fx, fy, cfg.max_per_tile,
                 int(cfg.require_depth), cfg.alpha_clamp, cfg.alpha_min, stream)
     if rc != 0:

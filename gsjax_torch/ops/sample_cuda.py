@@ -15,7 +15,8 @@ For tensors on the CPU each runs its plain-PyTorch twin
 tensors each launches its kernel or raises. `sample_fwd.launches`,
 `integrate_fwd.launches` and `sample_bwd.launches` count kernel launches.
 `sample_fwd` takes B1's median-search arguments `slots` and `counters`
-(`render_cuda.blend_fwd`); B4 runs no search.
+(`render_cuda.blend_fwd`); B4 runs no search; `sample_bwd` takes B2's
+profile `counters` (`render_cuda.blend_bwd`).
 
 `SampleDepth` is the differentiable query, as gsjax's `custom_vjp`
 `sample_depth_pallas`: its forward keeps the payload, the points, the lists
@@ -30,7 +31,8 @@ import torch
 from gsjax_torch import _build
 from gsjax_torch.ops import sample_ref
 from gsjax_torch.ops.raster.config import RasterConfig
-from gsjax_torch.ops.raster.render_cuda import SLOTS, _check, check_search_args
+from gsjax_torch.ops.raster.render_cuda import (SLOTS, _check, check_bwd_counters,
+                                                check_search_args)
 
 
 def _check_launch(name, feats_pairs, tile_start, tile_count, pts, blocks):
@@ -122,11 +124,15 @@ integrate_fwd.launches = 0
 
 def sample_bwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
                tile_count: torch.Tensor, pts: torch.Tensor, blocks: torch.Tensor,
-               res: torch.Tensor, g: torch.Tensor, cfg: RasterConfig):
+               res: torch.Tensor, g: torch.Tensor, cfg: RasterConfig,
+               counters: torch.Tensor | None = None):
     """VJP of `sample_fwd`'s m_t -> (d_feats [K, 16], d_pts [Q, 2]) float32.
 
     res [6, Q]: `sample_fwd`'s output for these arguments; g [Q]: the
-    cotangent of its row 0. Other arguments as `sample_fwd`."""
+    cotangent of its row 0; `counters`: None, or a
+    `render_cuda.bwd_counters` buffer the kernel fills. Other arguments as
+    `sample_fwd`."""
+    ctr = check_bwd_counters("sample_bwd", counters, feats_pairs.device)
     if feats_pairs.device.type == "cpu":
         return sample_ref.sample_bwd_rows(feats_pairs, tile_start, tile_count, pts,
                                           blocks, res, g, cfg)
@@ -144,7 +150,7 @@ def sample_bwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
                 pts.data_ptr(), blocks.data_ptr(), res.data_ptr(), g.data_ptr(),
-                d_feats.data_ptr(), d_pts.data_ptr(), blocks.shape[0], q,
+                d_feats.data_ptr(), d_pts.data_ptr(), ctr, blocks.shape[0], q,
                 cfg.max_per_tile, cfg.alpha_clamp, cfg.alpha_min, stream)
     if rc != 0:
         raise RuntimeError(f"sample_bwd kernel launch failed: cudaError {rc}")

@@ -17,6 +17,10 @@ of tests/test_torch_render.py, and hold its median and in-range flags to
 5e-3; in-range equal on >= 99.99%; dlogT/dt within 1% / 1e-3 on >= 99.9% of
 the pixels in range on both sides). Capacities 0 (every pixel re-walks), 4
 (both paths) and unbounded agree with each other within the same limits.
+The same scene 60 times as far from the camera (positions, scales, near
+plane and search range times 60: the same image, ray distances ~180-330)
+needs as many Newton evaluations, within 0.5 on average: there an ulp of t
+exceeds the absolute exit tolerance, and the exit is relative to t.
 """
 
 import math
@@ -33,6 +37,8 @@ torch.set_num_threads(1)
 
 LOG_HALF = -0.69314718055994531      # median.cuh:kLogHalf
 ITERS, STEP_TOL = 12, 1e-5           # kNewtonIters, kStepTol
+STEP_REL = 2 * 1.1920928955078125e-7  # kStepRel
+FAR = 60.0                           # chip_smoke.FAR
 CUT, WIDE_CUT = 6.0, 14.5            # kFoldCut, kWideCut
 MD_ATOL, MD_RTOL, MD_FRAC, MD_MAX = 2e-3, 1e-3, 0.9999, 5e-3
 DD_RTOL, DD_ATOL, DD_FRAC = 1e-2, 1e-3, 0.999
@@ -147,8 +153,9 @@ class _Newton:
         last = torch.where(newton, step, 0.5 * (self.hi - self.lo))
         t_next = torch.where(newton, t_n, 0.5 * (self.lo + self.hi))
         self.iters = self.iters + live
-        done = (self.iters >= ITERS) | ((t_next - self.t).abs() <= STEP_TOL) | \
-            (ok & (step.abs() <= STEP_TOL))
+        tol = torch.clamp_min(STEP_REL * self.t.abs(), STEP_TOL)
+        done = (self.iters >= ITERS) | ((t_next - self.t).abs() <= tol) | \
+            (ok & (step.abs() <= tol))
         self.done = torch.where(live, done, self.done)
         self.last = torch.where(live, last, self.last)
         self.t = torch.where(live, t_next, self.t)
@@ -213,13 +220,17 @@ def emulate_search(pairs, valid, md_init, cand, cfg, cap):
             "varying": n_vary, "walked": walked}
 
 
-@pytest.fixture(scope="module")
-def scene():
-    """The small scene of test_torch_render.py through the twin, and each
-    pixel's applied pairs in list order."""
-    g, _ = _inputs()
+def _scene_at(scale):
+    """The small scene of test_torch_render.py `scale` times as far from the
+    camera (at the origin) through the twin, and each pixel's applied pairs
+    in list order."""
+    (means, scales, quats, opac, shs), _ = _inputs()
+    g = (means * scale, scales * scale, quats, opac, shs)
     cam = _tcam()
-    cfg = RasterConfig(sh_degree=2, max_per_tile=256, require_depth=True)
+    base = RasterConfig(sh_degree=2, max_per_tile=256, require_depth=True)
+    cfg = RasterConfig(sh_degree=2, max_per_tile=256, require_depth=True,
+                       sample_range=base.sample_range * scale,
+                       near_plane=base.near_plane * scale)
     prep = preprocess(*map(torch.as_tensor, g), None, None, None, cam, cfg)
     b = bin_gaussians(prep, cfg, W, H)
     feats = render_ref.prepare_pairs(prep, b)
@@ -255,6 +266,16 @@ def scene():
     return {"pairs": pairs, "valid": ap[sel], "md_init": planes[9][pix], "cand": cand,
             "cfg": cfg, "zfac": zfac, "want_md": planes[7][pix],
             "want_in": planes[11][pix] > 0, "want_dd": planes[12][pix]}
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return _scene_at(1.0)
+
+
+@pytest.fixture(scope="module")
+def far_scene():
+    return _scene_at(FAR)
 
 
 def _run(scene, cap):
@@ -303,3 +324,18 @@ def test_capacities_agree(scene):
         _held(r["m_t"], r["in_range"], r["d_denom"], ref["m_t"], ref["in_range"],
               ref["d_denom"])
         assert torch.equal(r["in_range"], ref["in_range"])
+
+
+def test_far_scene_needs_no_more_evaluations(scene, far_scene, record_property):
+    near, far = _run(scene, None), _run(far_scene, None)
+    assert far["in_range"].float().mean() > 0.2, "the far scene must exercise the median"
+    assert float(far["m_t"].max()) > 256, "ray distances past 256, where an ulp > 2e-5"
+    _held(far["m_t"] * far_scene["zfac"], far["in_range"], far["d_denom"],
+          far_scene["want_md"], far_scene["want_in"], far_scene["want_dd"])
+    it_near = near["iters"][near["in_range"]].double()
+    it_far = far["iters"][far["in_range"]].double()
+    record_property("newton_evaluations_far_mean", float(it_far.mean()))
+    print(f"Newton evaluations mean near {float(it_near.mean()):.3f}, far "
+          f"{float(it_far.mean()):.3f} (max {int(it_far.max())})")
+    assert abs(float(it_far.mean()) - float(it_near.mean())) <= 0.5
+    assert int(it_far.max()) <= ITERS
