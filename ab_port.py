@@ -8,17 +8,23 @@ and `chip_smoke.py` are imported; its kernels build into ROOT/build. Prints
 one JSON line of CUDA-event milliseconds at chip_smoke's workloads
 (1920x1080, bench.py's 100k gaussians): B1 with and without the median
 depth, B2 with and without it, B3 on the multi-view query and on the tetra
-points of a 100k-gaussian sphere, B4 on those points, B5, B6, a whole
-`render()`, a train step with regularisation and one with the multi-view
-losses, beside the card's name and power limit; where the checkout's
-backward kernels have profile counters, also B2's and B5's readings of
-them (`render_cuda.bwd_stats`). To compare commits, unpack the other one
+points of a 100k-gaussian sphere, B4 on those points (in the order of the
+checkout's integrate path), B5, B6, a whole `render()`, a train step with
+regularisation and one with the multi-view losses, beside the card's name
+and power limit; where the checkout's kernels have profile counters, also
+B2's and B5's readings of them (`render_cuda.bwd_stats`) and B4's
+(`sample_cuda.integrate_stats`); and the host-clock time of one
+`integrate_view` call at the meshing scene's size (`integrate_view_ms`: the
+point prep, B4 and the scatter), with B4's time there, both also with the
+points in tile order where the checkout's integrate sorts them by pixel
+(`integrate_view_tile_order_ms`). To compare commits, unpack the other one
 under build/ and run the two in turns (A, B, B, A) on the same machine.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -26,10 +32,84 @@ import sys
 REPS = 30        # launches per kernel timing (chip_smoke's event_ms takes 10)
 
 
+def integrate_views(cs, dev, w, h, n=20_000, rounds=4, reps=10):
+    """One `integrate_view` call (the point prep, B4 and the scatter, ending
+    in a synchronise) on the tetra points of chip_smoke's meshing scene, an
+    n-gaussian sphere in ring view 0 of 8: its host-clock ms in the
+    checkout's own order and, where the checkout's integrate sorts points by
+    pixel, with its point prep made to sort by tile alone, the two timed in
+    alternating rounds, each beside its point prep alone (`prepare_points`);
+    and B4's CUDA-event ms on each order's points."""
+    import time
+
+    import torch
+
+    from gsjax_torch.core.transforms import focal2fov
+    from gsjax_torch.data.synth import ring_pose, sphere_gaussians
+    from gsjax_torch.mesh.extract import get_tetra_points
+    from gsjax_torch.model import gaussians as gm
+    from gsjax_torch.ops import sample as smp
+    from gsjax_torch.ops import sample_cuda
+    from gsjax_torch.ops.raster import Camera, RasterConfig
+
+    params, aux = cs.bench_params(sphere_gaussians(n, seed=0), dev)
+    pts, _ = get_tetra_points(params, aux)
+    r_w2c, tvec = ring_pose(0, 8)
+    cam = Camera.create(r_w2c.T, tvec, focal2fov(0.9 * w, w), focal2fov(0.9 * w, h), w, h,
+                        device=dev)
+    cfg = RasterConfig(require_depth=True, max_per_tile=1 << 12)
+    own = smp.prepare_points
+    pixel = "pixel_order" in inspect.signature(own).parameters
+    # each order: the point prep integrate_view is to call, and its arguments
+    orders = {"": (own, {"pixel_order": True} if pixel else {})}
+    if pixel:
+        orders["_tile_order"] = (lambda view, points, camera, cfg_, pixel_order=False: own(
+            view, points, camera, cfg_), {})
+    host = {k: [] for k in orders}
+    host_prep = {k: [] for k in orders}
+    out = {}
+    with torch.no_grad():
+        scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
+        view = smp.prepare_view(params.xyz, scales, params.rotation, opac, cam, cfg, aux.alive)
+        try:
+            for r in range(rounds + 1):
+                for key, (prep, kw) in orders.items():
+                    smp.prepare_points = prep
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        smp.integrate_view(view, pts, cam, cfg)
+                    torch.cuda.synchronize()
+                    if r:                              # round 0 warms up
+                        host[key].append((time.perf_counter() - t0) / reps * 1e3)
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        prep(view, pts, cam, cfg, **kw)
+                    torch.cuda.synchronize()
+                    if r:
+                        host_prep[key].append((time.perf_counter() - t0) / reps * 1e3)
+        finally:
+            smp.prepare_points = own
+        for key, (prep, kw) in orders.items():
+            qr = prep(view, pts, cam, cfg, **kw)
+            t_eval = qr.t_ray[qr.sorted_q].contiguous()
+            out[f"integrate_view{key}_ms"] = sum(host[key]) / len(host[key])
+            out[f"integrate_view{key}_rounds_ms"] = host[key]
+            out[f"point_prep{key}_ms"] = sum(host_prep[key]) / len(host_prep[key])
+            out[f"b4_mesh_scene{key}_ms"] = cs.event_ms(lambda: sample_cuda.integrate_fwd(
+                qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts, t_eval,
+                qr.blocks, cfg), reps=REPS)
+        out["mesh_scene_points"] = int(qr.pts.shape[0])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default="")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run the checkout's chip_smoke `mesh` phase (both meshing CLIs) "
+                         "in place of the kernel timings")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -51,6 +131,12 @@ def main(argv=None):
     dev = torch.device("cuda")
     w, h, n = 1920, 1080, 100_000
     out = {"label": args.label, "root": root, "nvidia_smi": cs.smi_line()}
+    if args.mesh:
+        print(json.dumps(out), flush=True)
+        cs.phase_mesh(dev)
+        return 0
+    # first, while the process's allocator holds nothing else
+    out.update(integrate_views(cs, dev, w, h))
 
     # B1, B2 and render() on bench.py's frame
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
@@ -118,13 +204,21 @@ def main(argv=None):
         reps=5)
     del sc, qr, q_lists, params, aux, adam
 
-    # B3 and B4 on the tetra points of a sphere
+    # B3 and B4 on the tetra points of a sphere, each in its own path's order
+    # (a checkout whose integrate sorts by pixel says so in sphere_query)
     qr, t_eval, cfg = cs.sphere_query(w, h, n, dev)
     p_lists = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts)
-    out["b4_ms"] = cs.event_ms(lambda: sample_cuda.integrate_fwd(*p_lists, t_eval,
-                                                                 qr.blocks, cfg), reps=REPS)
     out["b3_tetra_ms"] = cs.event_ms(lambda: sample_cuda.sample_fwd(*p_lists, qr.blocks, cfg),
                                      reps=REPS)
+    if "pixel_order" in inspect.signature(cs.sphere_query).parameters:
+        qr, t_eval, cfg = cs.sphere_query(w, h, n, dev, pixel_order=True)
+        p_lists = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts)
+    out["b4_ms"] = cs.event_ms(lambda: sample_cuda.integrate_fwd(*p_lists, t_eval,
+                                                                 qr.blocks, cfg), reps=REPS)
+    if hasattr(sample_cuda, "integrate_counters"):
+        ctr = sample_cuda.integrate_counters(dev)
+        sample_cuda.integrate_fwd(*p_lists, t_eval, qr.blocks, cfg, counters=ctr)
+        out["b4_profile"] = sample_cuda.integrate_stats(ctr)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -55,19 +55,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
               `grid_sample`), `sample_depth` and `warp_patch_ncc` forward +
               backward, and a train step with the multi-view losses, its peak
               memory and idle share, at 1920x1080 / 100k;
-  parity_integrate  kernel B4 (the point integrate, `sample_fwd.cu`'s second
-              mode) against its twin `sample_ref.integrate_rows` on the tetra
+  parity_integrate  kernel B4 (the point integrate, `integrate_fwd.cu`)
+              against its twin `sample_ref.integrate_rows` on the tetra
               points of a sphere model (`sphere_gaussians`) in a ring view,
-              at 640x360 / 20k gaussians (0.30 M points) and 1920x1080 / 100k
-              (1.5 M points);
-  timing_mesh B4 against its bound and its twin at 1920x1080 / 100k, with B3
-              on the same points beside it;
+              in the integrate's pixel order, at 640x360 / 20k gaussians
+              (0.30 M points) and 1920x1080 / 100k (1.5 M points);
+  timing_mesh B4 against its bound and its twin at 1920x1080 / 100k, its
+              block count and fill, with B3 on the same points beside it;
+  integrate_profile  where B4's warp cycles go on that query, from the
+              kernel's profile counters: blocks and fill, the warps' pair
+              lists, warp-pairs walked and the shares with a lane past the
+              cut-off, an applying lane or a near factor, lane-pairs after
+              the lane's own stop, applied pairs by band (6 sigmas in front
+              of the point, behind it, near, steps) and the cycle split, with
+              B4's time and warp-pairs on the points in tile order beside;
   mesh        both meshing CLIs (`gsjax_torch.mesh_extract_tetrahedra`,
               `gsjax_torch.mesh_extract`) on an 8-view 1920x1080 ring scene of
               a 20k-gaussian sphere PLY: B4's launches must equal
               views x (1 + 10 binary-search steps) x chunks, B1's the views of
               the TSDF route, and both `recon_post.ply` lie on the unit
-              sphere; the stage split and peak memory of each route.
+              sphere; the stage split and peak memory of each route, and B4's
+              summed device time (CUDA events around each call).
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
@@ -76,6 +84,7 @@ result. Run from the repository root; scenes are written under
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -189,6 +198,18 @@ OPS_POINT_APPLY = 8
 OPS_SBWD_APPLY = 75
 OPS_SBWD_POINT = 10
 OPS_WARP = 30
+# B4 (csrc/integrate_fwd.cu) is charged what its function needs on these
+# inputs (`integrate_needs`): OPS_ALPHA only for the (pair, point) tests
+# whose cut-off ellipse reaches the point within its march (its applied
+# pairs and the pair that stops it); OPS_REACH per (warp of 32 sorted points,
+# pair up to the warp's longest march) for finding those pairs (the exact
+# least of the conic over the warp's box, `reaches`); OPS_POINT_APPLY +
+# OPS_BAND per applied pair (its ray-depth plane, delta and the band test);
+# OPS_DEPTH per applied pair within 6 sigmas of the point, the only ones
+# whose factor needs the half-CDF term (farther ones give exactly 1 - alpha
+# or 1).
+OPS_REACH = 60
+OPS_BAND = 6
 
 
 # B4 against its twin on the same view payload and points. gsjax holds its two
@@ -358,10 +379,11 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": secs, "built": sorted(logs),
-          "ptxas": ptxas})
+    # per source: each kernel instance's registers, spills and shared memory
+    ptxas = {src: [ln.strip()[:120] for ln in log.splitlines()
+                   if "entry function" in ln or "registers" in ln or "spill" in ln]
+             for src, log in logs.items()}
+    emit({"phase": "build", "seconds": secs, "built": sorted(logs), "ptxas": ptxas})
 
 
 def phase_parity(width, height, n, dev):
@@ -1196,6 +1218,51 @@ def point_interactions(qr, res, cfg):
     return marched.to(torch.float64), applied.to(torch.float64)
 
 
+def integrate_needs(qr, res, t_eval, cfg):
+    """What B4's function needs on this query (OPS_REACH above), from the
+    twin's own alpha test: `reach`, the (pair, point) tests whose cut-off
+    ellipse reaches the point within its march (the applied pairs and the
+    first passing pair after them, which stops the march); `applied`; `near`,
+    the applied pairs within 6 sigmas of the point; `warp_pairs`, summed over
+    warps of 32 consecutive points of a block, the pairs up to the warp's
+    longest march."""
+    import torch
+
+    from gsjax_torch.ops import sample_ref
+    from gsjax_torch.ops.raster import render_ref
+
+    b = qr.binning
+    feats_pad = torch.cat([qr.feats, qr.feats.new_zeros(1, 16)])
+    n_contrib = res[2].to(torch.int64)
+    big = torch.iinfo(torch.int64).max
+    tot = dict.fromkeys(("reach", "applied", "near", "warp_pairs"), 0)
+    for ids, starts, counts in sample_ref._batches(b.tile_start, b.tile_count, qr.blocks, cfg):
+        idx, px, py, valid = sample_ref._block_points(qr.pts, qr.blocks, ids)
+        lim = torch.where(valid, n_contrib[idx], 0)[:, None, :]
+        et = torch.where(valid, t_eval[idx], 0.0)[:, None, :]
+        first_after = torch.full_like(idx, big)
+        for base in range(0, int(counts.max()), cfg.chunk):
+            f, rel, vld = render_ref._gather_chunk(feats_pad, starts, counts, base, cfg.chunk)
+            _, passes, dx, dy = render_ref._alpha_terms(f, px, py, cfg, vld)
+            passes &= valid[:, None, :]
+            r = rel[None, :, None]
+            applied = passes & (r < lim)
+            t_peak = f[..., 9:10] * dx + f[..., 10:11] * dy + f[..., 11:12]
+            rsig = f[..., 12:13]
+            near = applied & (rsig > 0) & (((et - t_peak) * rsig).abs() < 6.0)
+            tot["applied"] += int(applied.sum())
+            tot["near"] += int(near.sum())
+            first_after = torch.minimum(
+                first_after, torch.where(passes & (r >= lim), r, big).amin(1))
+        stopped = first_after < big
+        tot["reach"] += int(stopped.sum())
+        marched = torch.where(stopped, first_after + 1, counts[:, None])
+        marched = torch.where(valid, marched, 0)
+        tot["warp_pairs"] += int(marched.view(marched.shape[0], -1, 32).amax(2).sum())
+    tot["reach"] += tot["applied"]
+    return tot
+
+
 def roofline(nbytes, ops):
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     ops_ms = ops / PEAK_F32_S * 1e3
@@ -1332,11 +1399,12 @@ def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
     return out, {"sample_fwd": b3_bound, "sample_bwd": b5_bound, "warp_sample": b6_bound}
 
 
-def sphere_query(width, height, n, dev, view=0, n_views=8):
+def sphere_query(width, height, n, dev, view=0, n_views=8, pixel_order=False):
     """The tetra points of an n-gaussian sphere model (`sphere_gaussians`,
     the meshing route's input) queried in ring view `view` of `n_views` (fx =
     0.9 width, as data/synth.py writes the scene): the view's prepared pairs
-    and points, the points' ray distances and the config."""
+    and points (sorted by tile, or with `pixel_order` as the integrate sorts
+    them), the points' ray distances and the config."""
     import torch
 
     from gsjax_torch.core.transforms import focal2fov
@@ -1355,18 +1423,19 @@ def sphere_query(width, height, n, dev, view=0, n_views=8):
     with torch.no_grad():
         scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
         vp = prepare_view(params.xyz, scales, params.rotation, opac, cam, cfg, aux.alive)
-        qr = prepare_points(vp, pts, cam, cfg)
+        qr = prepare_points(vp, pts, cam, cfg, pixel_order)
     return qr, qr.t_ray[qr.sorted_q].contiguous(), cfg
 
 
 def phase_parity_integrate(width, height, n, dev):
-    """B4 against its twin on the same view payload and points; returns
-    (summary, (query, ray distances, config, B4 rows))."""
+    """B4 against its twin on the same view payload and points, in the
+    integrate path's pixel order; returns (summary, (query, ray distances,
+    config, B4 rows))."""
     import torch
 
     from gsjax_torch.ops import sample_cuda, sample_ref
 
-    qr, t_eval, cfg = sphere_query(width, height, n, dev)
+    qr, t_eval, cfg = sphere_query(width, height, n, dev, pixel_order=True)
     args = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts, t_eval,
             qr.blocks, cfg)
     rk = sample_cuda.integrate_fwd(*args)
@@ -1398,30 +1467,106 @@ def phase_parity_integrate(width, height, n, dev):
     return out, (qr, t_eval, cfg, rk)
 
 
-def phase_timing_mesh(width, height, qr, t_eval, cfg, res):
-    """B4 against its bound at the parity phase's full size, with B3 on the
-    same points; returns (B4 ms, bound)."""
-    from gsjax_torch.ops import sample_cuda
+def phase_timing_mesh(width, height, qr, t_eval, cfg, res, tile_query):
+    """B4 against its bound at the parity phase's full size, its block count
+    and fill, with B3 on the same points in B3's own order (`tile_query`,
+    sorted by tile); returns (B4 ms, bound)."""
+    from gsjax_torch.ops import sample_cuda, sample_ref
 
     lists = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts)
-    out = {"points": int(qr.pts.shape[0]),
+    qt = tile_query[0]
+    t_lists = (qt.feats, qt.binning.tile_start, qt.binning.tile_count, qt.pts, qt.blocks)
+    nb = int(qr.blocks.shape[0])
+    out = {"points": int(qr.pts.shape[0]), "b4_blocks": nb,
+           "b4_block_fill": qr.pts.shape[0] / (sample_ref.BLOCK * nb),
            "b4_ms": event_ms(lambda: sample_cuda.integrate_fwd(*lists, t_eval, qr.blocks,
                                                                cfg)),
-           "b3_same_points_ms": event_ms(lambda: sample_cuda.sample_fwd(*lists, qr.blocks,
-                                                                        cfg)),
+           "b3_same_points_ms": event_ms(lambda: sample_cuda.sample_fwd(*t_lists, cfg)),
            "b3_same_points_slots0_ms": event_ms(lambda: sample_cuda.sample_fwd(
-               *lists, qr.blocks, cfg, slots=0))}
-    marched, applied = point_interactions(qr, res, cfg)
-    ops = float((marched * OPS_ALPHA + applied * (OPS_POINT_APPLY + OPS_PAIR_MEDIAN
-                                                  + OPS_DEPTH)).sum())
+               *t_lists, cfg, slots=0))}
+    need = integrate_needs(qr, res, t_eval, cfg)
+    ops = float(need["reach"] * OPS_ALPHA + need["applied"] * (OPS_POINT_APPLY + OPS_BAND)
+                + need["near"] * OPS_DEPTH + need["warp_pairs"] * OPS_REACH)
     k, q = qr.feats.shape[0], qr.pts.shape[0]
     lists_bytes = 2 * 4 * qr.binning.tile_count.numel() + 12 * qr.blocks.shape[0]
     bound = {**roofline(k * 64 + lists_bytes + q * 12 + 5 * q * 4, ops),
-             "interactions_marched": float(marched.sum()),
-             "interactions_applied": float(applied.sum())}
+             **{f"interactions_{key}": v for key, v in need.items()}}
     emit({"phase": "timing_mesh", "width": width, "height": height, **out,
           "b4_bound": bound})
     return out["b4_ms"], bound
+
+
+def phase_integrate_profile(qr, t_eval, cfg, res, bound, b4_ms, tile_query):
+    """Where B4's warp cycles go on the parity phase's full-size query, from
+    the kernel's profile counters (`sample_cuda.integrate_stats`): blocks and
+    their fill, the warps' lists, warp-pairs walked and the shares with a lane
+    past the cut-off, an applying lane and a near factor, lane-pairs after
+    the lane's stop, applied pairs by band and the cycle split; the profiled
+    instance's time and rows beside the plain one's; and, in `tile_order`,
+    B4's time and warp-pairs on the same points sorted by tile only
+    (`tile_query`)."""
+    import torch
+
+    from gsjax_torch.ops import sample_cuda
+
+    args = (qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts, t_eval,
+            qr.blocks, cfg)
+    ctr = sample_cuda.integrate_counters(qr.pts.device)
+    rows = sample_cuda.integrate_fwd(*args, counters=ctr)
+    st = sample_cuda.integrate_stats(ctr)
+    profiled_ms = event_ms(lambda: sample_cuda.integrate_fwd(*args, counters=ctr))
+    twin_applied = bound["interactions_applied"]
+    qt, t_tile, _ = tile_query
+    t_args = (qt.feats, qt.binning.tile_start, qt.binning.tile_count, qt.pts, t_tile,
+              qt.blocks, cfg)
+    sample_cuda.integrate_fwd(*t_args, counters=ctr)
+    st_tile = sample_cuda.integrate_stats(ctr)
+    tile_order = {"ms": event_ms(lambda: sample_cuda.integrate_fwd(*t_args)),
+                  **{k: st_tile[k] for k in ("pairs_kept", "warp_pairs", "active_share",
+                                             "near_share", "lanes_stopped_share")}}
+    emit({"phase": "integrate_profile", "ms": b4_ms,
+          "profiled_ms": profiled_ms, "applied_twin": twin_applied, **st,
+          "tile_order": tile_order})
+    check(torch.equal(rows, res), "B4's profiled instance gives other rows")
+    check(st["blocks"] == qr.blocks.shape[0] and st["points"] == qr.pts.shape[0],
+          f"B4 profile counted {st['blocks']} blocks, {st['points']} points")
+    check(0 < st["warp_pairs_active"] <= st["warp_pairs_tested"] <= st["warp_pairs"],
+          "B4 profile counters do not add up")
+    check(abs(st["applied"] - twin_applied) <= 1e-4 * twin_applied,
+          f"B4 applied {st['applied']} pairs, the twin's test {twin_applied}")
+    return st
+
+
+@contextlib.contextmanager
+def timed_calls(module, name):
+    """Installs, while active, a stand-in for wrapper `module.name` that
+    records CUDA events around each call; yields the list of (start, end)
+    event pairs. The stand-in's `launches` reads and writes the wrapper's
+    own, so every launch is counted on the wrapper, whichever name the
+    wrapper reaches itself by."""
+    import torch
+
+    fn = getattr(module, name)
+    pairs = []
+
+    class Timed:
+        __name__ = fn.__name__
+        launches = property(lambda self: fn.launches,
+                            lambda self, v: setattr(fn, "launches", v))
+
+        def __call__(self, *args, **kwargs):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*args, **kwargs)
+            ev[1].record()
+            pairs.append(ev)
+            return out
+
+    setattr(module, name, Timed())
+    try:
+        yield pairs
+    finally:
+        setattr(module, name, fn)
 
 
 def _read_mesh(path):
@@ -1441,6 +1586,7 @@ def phase_mesh(dev, n_views=8, width=1920, height=1080, n=20_000, voxel=0.01):
     from gsjax_torch.config import dump_cfg_args
     from gsjax_torch.data.synth import ring_pose, sphere_gaussians, write_rendered_colmap
     from gsjax_torch.model.io import save_ply
+    from gsjax_torch.ops import sample_cuda
 
     shutil.rmtree(WORK, ignore_errors=True)
     scene_dir = os.path.join(WORK, "mesh_scene")
@@ -1466,9 +1612,11 @@ def phase_mesh(dev, n_views=8, width=1920, height=1080, n=20_000, voxel=0.01):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        meshes = cli.main(argv)
-        torch.cuda.synchronize()
+        with timed_calls(sample_cuda, "integrate_fwd") as b4_calls:
+            meshes = cli.main(argv)
+            torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
+        b4_s = sum(a.elapsed_time(b) for a, b in b4_calls) / 1e3
         launches = read_launches()
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -1476,6 +1624,7 @@ def phase_mesh(dev, n_views=8, width=1920, height=1080, n=20_000, voxel=0.01):
         radius = np.abs(np.linalg.norm(verts, axis=1) - 1.0)
         routes[route] = {
             "cli_s": cli_s, "seconds": meshes["seconds"], "launches": launches,
+            "b4_calls": len(b4_calls), "b4_device_s": b4_s, "b4_share_of_cli": b4_s / cli_s,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "post_vertices": int(len(verts)), "post_faces": int(len(faces)),
             "raw_faces": int(len(meshes["raw"][1])),
@@ -1496,7 +1645,7 @@ def phase_mesh(dev, n_views=8, width=1920, height=1080, n=20_000, voxel=0.01):
     files = sorted(f for f in os.listdir(model_dir) if f.endswith(".ply"))
     check(files == ["recon.ply", "recon_init.ply", "recon_post.ply"], f"mesh files {files}")
     tet, tsdf = routes["tetrahedra"]["launches"], routes["tsdf"]["launches"]
-    check(tet["integrate_fwd"] == want_b4,
+    check(tet["integrate_fwd"] == want_b4 == routes["tetrahedra"]["b4_calls"],
           f"integrate_fwd launched {tet['integrate_fwd']} times, want {want_b4}")
     check(tsdf["blend_fwd"] == n_views,
           f"blend_fwd launched {tsdf['blend_fwd']} times for {n_views} views")
@@ -1584,8 +1733,10 @@ def main():
     del scene, qr, rows, cot
     phase_parity_integrate(640, 360, 20_000, dev)
     int_err, int_query = phase_parity_integrate(1920, 1080, 100_000, dev)
-    b4_ms, b4_bound = phase_timing_mesh(1920, 1080, *int_query)
-    del int_query
+    tile_query = sphere_query(1920, 1080, 100_000, dev)
+    b4_ms, b4_bound = phase_timing_mesh(1920, 1080, *int_query, tile_query)
+    phase_integrate_profile(*int_query, b4_bound, b4_ms, tile_query)
+    del int_query, tile_query
     mesh_launches = phase_mesh(dev)
     serve_launches = phase_slice(dev)
     train_launches = phase_train(dev)
@@ -1620,7 +1771,7 @@ def main():
          "bound_by": b2_bound["bound_by"], "library_ms": None},
         entry("sample_fwd", "gsjax/ops/raster/sample_pallas.py:79",
               sample_err["m_t_max_abs_err"], mv_ms["b3_ms"], sample_err["twin_fwd_ms"]),
-        {"name": "integrate_fwd", "route": "cuda", "source": "gsjax_torch/csrc/sample_fwd.cu",
+        {"name": "integrate_fwd", "route": "cuda", "source": "gsjax_torch/csrc/integrate_fwd.cu",
          "replaces": "gsjax/ops/raster/sample_pallas.py:79 (integrate mode, :154-159)",
          "launches": mesh_launches["integrate_fwd"],
          "launches_by_path": {"render": 0, "train": train_launches["integrate_fwd"],

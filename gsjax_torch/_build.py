@@ -2,12 +2,12 @@
 
 Each source under `csrc/` is compiled with `nvcc` for Hopper (`sm_90a`) into
 a shared library with a plain C interface and loaded with `ctypes`; a kernel
-is one C symbol of its source's library (`sample_fwd.cu` exports two). The
-build goes into `build/gsjax_torch/` at the repository root at first use;
-the library's file name carries a hash of its source, the shared headers
-under `csrc/` and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is compiled when this module is imported:
-the CPU tests import every module, and the CPU machine has no `nvcc`.
+is one C symbol of its source's library. The build goes into
+`build/gsjax_torch/` at the repository root at first use; the library's file
+name carries a hash of its source, the shared headers under `csrc/` and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Nothing is compiled when this module is imported: the CPU tests import every
+module, and the CPU machine has no `nvcc`.
 """
 
 from __future__ import annotations
@@ -62,9 +62,10 @@ KERNELS = {
                                        # sample_range, min_transmittance
         _P,                            # cudaStream_t
     ]),
-    "integrate_fwd": ("csrc/sample_fwd.cu", "gsjax_integrate_fwd", [
+    "integrate_fwd": ("csrc/integrate_fwd.cu", "gsjax_integrate_fwd", [
         _P, _P, _P, _P, _P, _P, _P,    # feats, tile_start, tile_count, pts,
                                        # t_eval, blocks, out
+        _P,                            # counters
         _I, _I, _I,                    # n_blocks, q, max_per_tile
         _F, _F, _F,                    # alpha_clamp, alpha_min, t_min
         _P,                            # cudaStream_t

@@ -1,6 +1,7 @@
 // The median-depth search shared by the forward blend (blend_fwd.cu, B1) and
-// the point query (sample_fwd.cu, B3; its model term also serves the point
-// integrate, B4), from render_pallas.py:_median_search: the root of
+// the point query (sample_fwd.cu, B3; the point integrate, integrate_fwd.cu,
+// B4, takes its model term in product form), from
+// render_pallas.py:_median_search: the root of
 // log T(t) = log 1/2 of the half-gaussian-CDF transmittance model over one
 // thread's applied pairs, found by safeguarded Newton, with dlogT/dt at the
 // root (what a backward pass reads).
@@ -112,8 +113,7 @@ struct Query {
 // (render_pallas.py:_median_model): the pair with opacity `alpha`
 // (l1m = log1p(-alpha)), depth peak `t_peak` and inverse depth sigma `rsig`,
 // at ray distance t; with WANT_D also its d/dt in `dlf`. The median search
-// (B1, B3) sums it at trial depths, the point integrate (B4) at the point's
-// own ray distance.
+// (B1, B3) sums it at trial depths.
 template <bool WANT_D>
 __device__ __forceinline__ float half_cdf_log_factor(float alpha, float l1m,
                                                      float t, float t_peak,

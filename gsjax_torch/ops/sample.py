@@ -29,6 +29,7 @@ view's half once (`integrate_view`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -62,6 +63,27 @@ def _point_tile(px, py, camera: Camera, cfg: RasterConfig):
     tx = torch.clamp(torch.floor(px / cfg.tile), 0, tiles_x - 1).to(torch.int64)
     ty = torch.clamp(torch.floor(py / cfg.tile), 0, tiles_y - 1).to(torch.int64)
     return ty * tiles_x + tx
+
+
+@functools.lru_cache(maxsize=8)
+def _pixel_keys(width: int, height: int, tile: int, device: torch.device) -> torch.Tensor:
+    """[height * width] int32: each pixel's key in the integrate's pixel
+    order, its tile times tile^2 plus the Z order of the pixel within the
+    tile (built once per image size, so a call pays one gather for it)."""
+    if tile > 256:
+        raise ValueError(f"pixel order takes tiles of at most 256 pixels, got {tile}")
+    tiles_x = -(-width // tile)
+    y, x = torch.meshgrid(torch.arange(height, dtype=torch.int32, device=device),
+                          torch.arange(width, dtype=torch.int32, device=device), indexing="ij")
+    tile_id = (y // tile) * tiles_x + x // tile
+    return (tile_id * tile * tile + _z_order(x % tile) + 2 * _z_order(y % tile)).flatten()
+
+
+def _z_order(v):
+    """The bits of v (< 256) spread to the even bit positions."""
+    v = (v | (v << 4)) & 0x0F0F
+    v = (v | (v << 2)) & 0x3333
+    return (v | (v << 1)) & 0x5555
 
 
 def point_blocks(sorted_tile: torch.Tensor, num_tiles: int) -> torch.Tensor:
@@ -112,14 +134,23 @@ class Query:
     inside0: torch.Tensor      # [Q] in front of the near plane and on screen
 
 
-def prepare_points(view: ViewPairs, points, camera: Camera,
-                   cfg: RasterConfig) -> Query:
-    """Project the points and sort the ones inside the frustum by tile."""
+def prepare_points(view: ViewPairs, points, camera: Camera, cfg: RasterConfig,
+                   pixel_order: bool = False) -> Query:
+    """Project the points and sort the ones inside the frustum by tile (a
+    stable sort), or with `pixel_order` by tile and then by the Z order of
+    their pixel within the tile, so that a warp's points lie close together
+    (the integrate's order, `integrate_view`)."""
     px, py, t_ray, inside0 = _project_points(points, camera, cfg)
     tiles_x, tiles_y = cfg.grid(camera.width, camera.height)
     sel = torch.nonzero(inside0).squeeze(1)
-    sorted_tile, order = torch.sort(_point_tile(px.detach()[sel], py.detach()[sel],
-                                                camera, cfg), stable=True)
+    x, y = px.detach()[sel], py.detach()[sel]
+    if pixel_order:    # on-screen points: 0 <= x <= width - 1, so truncation floors
+        pix = y.to(torch.int32) * camera.width + x.to(torch.int32)
+        key, order = torch.sort(
+            _pixel_keys(camera.width, camera.height, cfg.tile, x.device)[pix], stable=True)
+        sorted_tile = key // (cfg.tile * cfg.tile)
+    else:
+        sorted_tile, order = torch.sort(_point_tile(x, y, camera, cfg), stable=True)
     sorted_q = sel[order]
     return Query(feats=view.feats, binning=view.binning,
                  pts=torch.stack([px[sorted_q], py[sorted_q]], -1).contiguous(),
@@ -188,7 +219,7 @@ def integrate_view(view: ViewPairs, points: torch.Tensor, camera: Camera,
                    cfg: RasterConfig) -> dict:
     """`integrate` on a view's prepared pairs (`prepare_view` of the same
     camera and config)."""
-    qr = prepare_points(view, points, camera, cfg)
+    qr = prepare_points(view, points, camera, cfg, pixel_order=True)
     fwd, = select(cfg, qr.feats.device, (sample_cuda.integrate_fwd,),
                   (sample_ref.integrate_rows,))
     res = fwd(qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts,

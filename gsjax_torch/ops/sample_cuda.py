@@ -1,6 +1,6 @@
-"""Point-query kernels: wrappers of `csrc/sample_fwd.cu` (B3, and B4 in its
-integrate mode) and `csrc/sample_bwd.cu` (B5), and the autograd Function
-that pairs B3 and B5.
+"""Point-query kernels: wrappers of `csrc/sample_fwd.cu` (B3),
+`csrc/integrate_fwd.cu` (B4) and `csrc/sample_bwd.cu` (B5), and the autograd
+Function that pairs B3 and B5.
 
 B3 replaces the TPU kernel `gsjax/ops/raster/sample_pallas.py:_sfwd_kernel`
 in depth mode, B4 the same kernel in integrate mode, B5 its backward
@@ -15,8 +15,11 @@ For tensors on the CPU each runs its plain-PyTorch twin
 tensors each launches its kernel or raises. `sample_fwd.launches`,
 `integrate_fwd.launches` and `sample_bwd.launches` count kernel launches.
 `sample_fwd` takes B1's median-search arguments `slots` and `counters`
-(`render_cuda.blend_fwd`); B4 runs no search; `sample_bwd` takes B2's
-profile `counters` (`render_cuda.blend_bwd`).
+(`render_cuda.blend_fwd`); `sample_bwd` takes B2's profile `counters`
+(`render_cuda.blend_bwd`); `integrate_fwd` takes its own profile `counters`
+(`integrate_counters`, read by `integrate_stats`). B4 expects each tile's
+points in pixel order (`sample.prepare_points(..., pixel_order=True)`); any
+order gives the same values.
 
 `SampleDepth` is the differentiable query, as gsjax's `custom_vjp`
 `sample_depth_pallas`: its forward keeps the payload, the points, the lists
@@ -33,6 +36,22 @@ from gsjax_torch.ops import sample_ref
 from gsjax_torch.ops.raster.config import RasterConfig
 from gsjax_torch.ops.raster.render_cuda import (SLOTS, _check, check_bwd_counters,
                                                 check_search_args)
+
+# B4's profile counters, in the order of integrate_fwd.cu:Counter, int64:
+# blocks and their points; pairs staged (per block) and kept in the warps'
+# lists (per warp); warp-pairs walked (one warp's step over one pair of its
+# list), those where some lane passes the cut-off (and takes an exp), applies
+# the pair, or computes a near factor; marching lanes and lanes whose point
+# has stopped, summed over warp-pairs; applied pairs by band (>= 6 sigmas in
+# front of the point, >= 6 behind, near, steps); and warp cycles (clock64,
+# summed over warps) in the setup and writes, the staging and barriers, the
+# warp's list, the alpha test and skips, and the applied factors.
+INTEGRATE_COUNTERS = ("blocks", "points", "pairs_staged", "pairs_kept", "warp_pairs",
+                      "warp_pairs_tested", "warp_pairs_active", "warp_pairs_near",
+                      "lane_pairs", "lane_pairs_stopped", "applied_front", "applied_behind",
+                      "applied_near", "applied_step", "cycles_setup", "cycles_stage",
+                      "cycles_filter", "cycles_alpha", "cycles_apply")
+_BANDS = ("front", "behind", "near", "step")
 
 
 def _check_launch(name, feats_pairs, tile_start, tile_count, pts, blocks):
@@ -88,15 +107,58 @@ def sample_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
 sample_fwd.launches = 0
 
 
+def integrate_counters(device) -> torch.Tensor:
+    """A zeroed profile buffer for `integrate_fwd`."""
+    return torch.zeros(len(INTEGRATE_COUNTERS), dtype=torch.int64, device=device)
+
+
+def integrate_stats(counters: torch.Tensor) -> dict:
+    """A filled `integrate_counters` buffer -> how B4's march went: blocks
+    and their mean fill, the share of staged pairs in the warps' lists,
+    warp-pairs walked and the shares with a lane past the cut-off, an
+    applying lane or a near factor, the shares of lane-pairs marching and
+    stopped, the applied pairs' shares by band, the cycle shares by part and
+    cycles per warp-pair. The counts are the plain instance's too; the cycles
+    are the profiled instance's, whose warp steps through its list together
+    (integrate_fwd.cu), not those of the plain one, whose lanes branch."""
+    n = dict(zip(INTEGRATE_COUNTERS, (int(x) for x in counters.cpu())))
+    per = lambda v, d: v / d if d else 0.0
+    walked = n["warp_pairs"]
+    applied = sum(n[f"applied_{b}"] for b in _BANDS)
+    parts = [k[len("cycles_"):] for k in INTEGRATE_COUNTERS if k.startswith("cycles_")]
+    cycles = sum(n[f"cycles_{k}"] for k in parts)
+    return {**{k: v for k, v in n.items() if not k.startswith("cycles_")},
+            "fill": per(n["points"], sample_ref.BLOCK * n["blocks"]),
+            "kept_share": per(n["pairs_kept"], n["pairs_staged"] * (sample_ref.BLOCK // 32)),
+            "tested_share": per(n["warp_pairs_tested"], walked),
+            "active_share": per(n["warp_pairs_active"], walked),
+            "near_share": per(n["warp_pairs_near"], walked),
+            "lanes_marching_share": per(n["lane_pairs"], 32 * walked),
+            "lanes_stopped_share": per(n["lane_pairs_stopped"], 32 * walked),
+            "applied": applied,
+            "band_shares": {b: per(n[f"applied_{b}"], applied) for b in _BANDS},
+            "warp_cycles": cycles,
+            "cycle_shares": {k: per(n[f"cycles_{k}"], cycles) for k in parts},
+            "cycles_per_warp_pair": per(cycles, walked)}
+
+
 def integrate_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
                   tile_count: torch.Tensor, pts: torch.Tensor, t_eval: torch.Tensor,
-                  blocks: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+                  blocks: torch.Tensor, cfg: RasterConfig,
+                  counters: torch.Tensor | None = None) -> torch.Tensor:
     """Transmittance at each point's own ray distance -> [5, Q] float32 rows,
     sorted order (row 0 T(point), 1 covered, 2-4 n_contrib, md_init,
     T_final).
 
-    t_eval [Q] float32: the sorted points' ray distances; other arguments
-    as `sample_fwd`."""
+    t_eval [Q] float32: the sorted points' ray distances; `counters`: None,
+    or an `integrate_counters` buffer the kernel fills (a profiled instance:
+    the same rows, about twice the time); other arguments as `sample_fwd`."""
+    if counters is not None:
+        if feats_pairs.device.type != "cuda":
+            raise ValueError("integrate_fwd: profile counters come from the kernel, on cuda")
+        _check("counters", counters, torch.int64, (len(INTEGRATE_COUNTERS),),
+               feats_pairs.device)
+        counters.zero_()
     if feats_pairs.device.type == "cpu":
         return sample_ref.integrate_rows(feats_pairs, tile_start, tile_count, pts,
                                          t_eval, blocks, cfg)
@@ -111,8 +173,9 @@ def integrate_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
                 pts.data_ptr(), t_eval.data_ptr(), blocks.data_ptr(), out.data_ptr(),
-                blocks.shape[0], q, cfg.max_per_tile, cfg.alpha_clamp, cfg.alpha_min,
-                cfg.transmittance_min, stream)
+                0 if counters is None else counters.data_ptr(), blocks.shape[0], q,
+                cfg.max_per_tile, cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min,
+                stream)
     if rc != 0:
         raise RuntimeError(f"integrate_fwd kernel launch failed: cudaError {rc}")
     integrate_fwd.launches += 1
