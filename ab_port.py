@@ -9,9 +9,11 @@ one JSON line of CUDA-event milliseconds at chip_smoke's workloads
 (1920x1080, bench.py's 100k gaussians): B1 with and without the median
 depth, B2 with and without it, B3 on the multi-view query and on the tetra
 points of a 100k-gaussian sphere, B4 on those points (in the order of the
-checkout's integrate path), B5, B6, a whole `render()`, a train step with
-regularisation and one with the multi-view losses, beside the card's name
-and power limit; where the checkout's kernels have profile counters, also
+checkout's integrate path), B5, B6, the dense NCC's forward + backward, a
+whole `render()`, a train step with regularisation and one with the
+multi-view losses, beside the card's name and power limit; where the
+checkout has the block-compacted NCC, also B6 on its compacted taps, its
+forward + backward and the multi-view step with it; where the checkout's kernels have profile counters, also
 B2's and B5's readings of them (`render_cuda.bwd_stats`) and B4's
 (`sample_cuda.integrate_stats`); and the host-clock time of one
 `integrate_view` call at the meshing scene's size (`integrate_view_ms`: the
@@ -100,6 +102,45 @@ def integrate_views(cs, dev, w, h, n=20_000, rounds=4, reps=10):
                 qr.feats, qr.binning.tile_start, qr.binning.tile_count, qr.pts, t_eval,
                 qr.blocks, cfg), reps=REPS)
         out["mesh_scene_points"] = int(qr.pts.shape[0])
+    return out
+
+
+def ncc_timings(cs, sc):
+    """The dense NCC's forward + backward on the multi-view cell (the sum of
+    1 - ncc^2 over valid pixels, as chip_smoke's `timing_mv`) and, where the
+    checkout has the block-compacted NCC, B6 on the compacted blocks' taps
+    and the block NCC's forward + backward on the reference view's
+    geometric mask."""
+    import torch
+
+    from gsjax_torch.ops import ncc as ncc_ops
+    from gsjax_torch.ops import warp_sample as ws
+    from gsjax_torch.train.multiview import _invert_rigid
+
+    ref, near = sc["cams"]
+    nrm = sc["normal"] / sc["normal"].norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    rel = near.world_view @ _invert_rigid(ref.world_view)
+    args = (sc["depth"].clone().requires_grad_(True), nrm.clone().requires_grad_(True),
+            sc["gray"][0], sc["gray"][1], rel[:3, :3], rel[:3, 3],
+            (ref.fx, ref.fy, ref.cx, ref.cy), (near.fx, near.fy, near.cx, near.cy))
+
+    def dense():
+        cc, valid = ncc_ops.warp_patch_ncc(*args)
+        return torch.autograd.grad(torch.where(valid, 1 - cc, 0.0).sum(), args[:2])
+
+    out = {"ncc_fwd_bwd_ms": cs.event_ms(dense, reps=5)}
+    if not hasattr(ncc_ops, "warp_patch_ncc_blocks"):
+        return out
+    un, vn = ncc_ops.block_neighbour_taps(args[0].detach(), args[1].detach(), sc["d_mask"],
+                                          *args[4:])
+    out["b6b_ms"] = cs.event_ms(lambda: ws.warp_sample_blocks(args[3], un, vn), reps=REPS)
+    del un, vn
+
+    def blocks():
+        s, *_ = ncc_ops.warp_patch_ncc_blocks(*args, sc["d_mask"], sc["weights"])
+        return torch.autograd.grad(s, args[:2])
+
+    out["ncc_blocks_fwd_bwd_ms"] = cs.event_ms(blocks, reps=5)
     return out
 
 
@@ -198,10 +239,15 @@ def main(argv=None):
     out["b6_ms"] = cs.event_ms(lambda: ws.warp_sample(gray_n, un, vn), reps=REPS)
     del un, vn, rows
     ref, near = sc["cams"]
+    out.update(ncc_timings(cs, sc))
     mv = dict(near_cam=near, gray_r=sc["gray"][0], gray_n=gray_n)
     out["train_step_mv_ms"] = cs.event_ms(lambda: train_step(
         params, aux, adam, ref, gt, bg, lrs, cfg, LossConfig(reg_on=True, mv_on=True), **mv),
         reps=5)
+    if "ncc_compact" in inspect.signature(LossConfig).parameters:
+        out["train_step_mv_compact_ms"] = cs.event_ms(lambda: train_step(
+            params, aux, adam, ref, gt, bg, lrs, cfg,
+            LossConfig(reg_on=True, mv_on=True, ncc_compact=True), **mv), reps=5)
     del sc, qr, q_lists, params, aux, adam
 
     # B3 and B4 on the tetra points of a sphere, each in its own path's order

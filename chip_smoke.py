@@ -25,11 +25,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               and 1920x1080 / 100k; B3 at the default slots and at slots=0;
   parity_warp kernel B6 (the NCC's neighbour-tap sampler) against its twin
               on the 49 taps of each pixel's homography at 1920x1080;
+  parity_ncc_blocks  the block-compacted NCC on the reference view's
+              geometric mask (d_mask and weights as the multi-view loss makes
+              them): B6 launched as `warp_sample_blocks` on the compacted
+              taps [B, 49, 256] against its twin, and `warp_patch_ncc_blocks`
+              against the dense `warp_patch_ncc` on the same mask, both on
+              the card: the loss sum, the count and the gradients to depth
+              and normal; the selected blocks, the frame's and the mask's
+              pixel share;
   train       the training CLI (`gsjax_torch.train.main`) for 40 steps on a
               6-view 1920x1080 scene initialised from 100k points, densify
               at 20 and 30, regularisation from 21 with gsjax's default
               multi-view lambdas; B2's launches must equal the steps, B3's,
               B5's and B6's the steps that ran the multi-view losses;
+  train_options  the same CLI run with GSJAX_NCC_COMPACT=1 and GOF's
+              appearance model (`--use_decoupled_appearance 2`):
+              `warp_sample_blocks` launched once per multi-view step and the
+              dense `warp_sample` never, the loss on fixed views (through the
+              appearance mapping) falling, and the checkpoint's `x_app/*`
+              keys reloading;
   timing      CUDA-event times of preprocess, binning, B1 and a whole
               `render()` at 1920x1080 / 100k, with B1's bound;
   search      how the median search of B1 (1920x1080 / 100k) and of B3 (the
@@ -49,12 +63,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the kernel's time with and without the counters;
   timing_train  B2 with and without depth and its bound, bench.py's
               fwd+bwd loss as rays/s, a train step with regularisation on and
-              off with its stage split and peak memory, and a profiler
-              reading of the device's busy share;
-  timing_mv   B3, B5 and B6 against their bounds (B6 also against
-              `grid_sample`), `sample_depth` and `warp_patch_ncc` forward +
-              backward, and a train step with the multi-view losses, its peak
-              memory and idle share, at 1920x1080 / 100k;
+              off with its stage split and peak memory, a profiler reading of
+              the device's busy share, and a reg-on step with each appearance
+              model (gs, pgsr, gof);
+  timing_mv   B3, B5, B6 and B6 on compacted blocks against their bounds (B6
+              also against `grid_sample`), `sample_depth`, `warp_patch_ncc`
+              and `warp_patch_ncc_blocks` forward + backward with their peak
+              memory, and a train step with the multi-view losses, dense and
+              block-compacted, its peak memory and idle share, at 1920x1080 /
+              100k;
   parity_integrate  kernel B4 (the point integrate, `integrate_fwd.cu`)
               against its twin `sample_ref.integrate_rows` on the tetra
               points of a sphere model (`sphere_gaussians`) in a ring view,
@@ -76,7 +93,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the TSDF route, and both `recon_post.ply` lie on the unit
               sphere; the stage split and peak memory of each route, and B4's
               summed device time (CUDA events around each call).
-Then the `kernels` line, the nvidia-smi line, and last
+Then the `kernels` line (seven entries: B6 appears twice, as `warp_sample`
+on the dense NCC and as `warp_sample_blocks` on the compacted one), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
 `build/chip_smoke/` and removed at the end.
@@ -186,6 +205,11 @@ PT_TOL, PT_FRAC, PT_MAX = BWD_TOL, BWD_FRAC, BWD_MAX
 # sum into one fma), so every sample, d/du and d/dv within 1e-5 absolute
 # (read: 1.2e-7, 9.3e-10 and 9.3e-10 on 101.6 M taps at 1080p).
 WARP_MAX = 1e-5
+# The block-compacted NCC against the dense one on the card, on the same mask
+# and with the same kernel: the loss sum within rtol NCC_RTOL, the count
+# equal, the gradients to depth and normal within NCC_GRAD of each one's
+# largest entry (the CPU twins read them equal, tests/test_torch_ncc_blocks.py).
+NCC_RTOL, NCC_GRAD = 1e-5, 1e-4
 
 # fp32 operations, counted from csrc/sample_fwd.cu and sample_bwd.cu as
 # OPS_* above: B3 charges OPS_ALPHA per marched (pair, point), OPS_POINT_APPLY
@@ -602,7 +626,8 @@ def _wrappers():
     from gsjax_torch.ops.raster import render_cuda
 
     return (render_cuda.blend_fwd, render_cuda.blend_bwd, sample_cuda.sample_fwd,
-            sample_cuda.integrate_fwd, sample_cuda.sample_bwd, warp_sample.warp_sample)
+            sample_cuda.integrate_fwd, sample_cuda.sample_bwd, warp_sample.warp_sample,
+            warp_sample.warp_sample_blocks)
 
 
 def reset_launches():
@@ -614,32 +639,46 @@ def read_launches():
     return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
-def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
+def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
+                options=False):
     """The training CLI at full width, with gsjax's default multi-view
-    lambdas; returns {kernel: launches}.
+    lambdas; returns {kernel: launches}. With `options` (phase
+    `train_options`) the CLI runs with GSJAX_NCC_COMPACT=1 and GOF's
+    appearance model.
 
     The per-step loss moves with the view drawn (about 15% between the six
     views), with the depth-normal and multi-view terms that enter at step 21
     and with the prune at each densify, so whether training lowers the loss
     is read on fixed views: the photometric loss over all six training
     views, rendered from the model at initialisation and after the last
-    step."""
+    step. With GOF it is read through the appearance mapping of each view
+    (the objective trained: its L1 on the mapped centre crop, SSIM on the
+    render); the raw render's loss is printed beside it."""
     import torch
 
     from gsjax_torch import train as train_cli
     from gsjax_torch.data.readers import load_scene
     from gsjax_torch.data.synth import write_rendered_colmap
-    from gsjax_torch.model.io import load_ply
+    from gsjax_torch.model import appearance as app_lib
+    from gsjax_torch.model.io import load_checkpoint, load_ply
     from gsjax_torch.train import losses
     from gsjax_torch.train.loop import Trainer
 
-    def views_loss(trainer):
+    phase = "train_options" if options else "train"
+    kind = "gof" if options else "no"
+
+    def views_loss(trainer, mapped):
         vals = []
         for v in trainer.scene.train_views:
             img = trainer.render_view(v, require_depth=False)["render"]
             gt = trainer.gt_for(v)
-            vals.append(float(0.8 * losses.l1_loss(img, gt)
-                              + 0.2 * (1 - losses.ssim(img, gt))))
+            with torch.no_grad():
+                if mapped and kind == "gof":
+                    l1 = app_lib.l1_appearance_gof(img, gt, trainer.app.net,
+                                                   trainer.app.table[v.uid])
+                else:
+                    l1 = losses.l1_loss(img, gt)
+                vals.append(float(0.8 * l1 + 0.2 * (1 - losses.ssim(img, gt))))
         return float(np.mean(vals))
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -650,8 +689,10 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
                           gaussians=bench_gaussians(n), pose_fn=bench_pose,
                           max_per_tile=1 << 12, points_stride=1, device=dev)
     # the model the CLI starts from (Trainer.create is deterministic)
-    initial = Trainer.create(load_scene(scene_dir, device=dev), None, model_dir, dev)
-    loss_before = views_loss(initial)
+    initial = Trainer.create(load_scene(scene_dir, device=dev), None, model_dir, dev,
+                             appearance=kind)
+    loss_before = views_loss(initial, True)
+    raw_before = views_loss(initial, False)
     del initial
     setup_s = time.perf_counter() - t0
     argv = ["-s", scene_dir, "-m", model_dir, "--iterations", str(steps),
@@ -659,31 +700,56 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
             "--densify_until_iter", "31", "--regularization_from_iter", "21",
             "--save_iterations", str(steps), "--checkpoint_iterations", str(steps),
             "--test_iterations", str(steps), "--device", str(dev)]
+    if options:
+        argv += ["--use_decoupled_appearance", "2"]
     log = []
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer = train_cli.main(argv, on_step=lambda t, m: log.append(
-        {"loss": m["loss"], "dn_loss": m["dn_loss"], "ncc_loss": m["ncc_loss"],
-         "geo_loss": m["geo_loss"], "view": m["view"], "near": m["near"],
-         "mv_queries": m["mv_queries"], "mv_max_tile_count": m["mv_max_tile_count"],
-         "max_per_tile": m["max_per_tile"], "attempts": m["attempts"], "pairs": m["num_live_pairs"],
-         "max_tile_count": m["max_tile_count"], "alive": int(t.aux.alive.sum()),
-         "densify": m.get("densify")}))
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = read_launches()
+    old_env = os.environ.get("GSJAX_NCC_COMPACT")
+    os.environ["GSJAX_NCC_COMPACT"] = "1" if options else "0"
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv, on_step=lambda t, m: log.append(
+            {"loss": m["loss"], "dn_loss": m["dn_loss"], "ncc_loss": m["ncc_loss"],
+             "geo_loss": m["geo_loss"], "view": m["view"], "near": m["near"],
+             "mv_queries": m["mv_queries"], "mv_max_tile_count": m["mv_max_tile_count"],
+             "mv_blocks": m["mv_blocks"], "max_per_tile": m["max_per_tile"],
+             "attempts": m["attempts"], "pairs": m["num_live_pairs"],
+             "max_tile_count": m["max_tile_count"], "alive": int(t.aux.alive.sum()),
+             "densify": m.get("densify")}))
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        if old_env is None:
+            os.environ.pop("GSJAX_NCC_COMPACT", None)
+        else:
+            os.environ["GSJAX_NCC_COMPACT"] = old_env
     mv = [r for r in log if r["near"] is not None]
     ply = os.path.join(model_dir, "point_cloud", f"iteration_{steps}", "point_cloud.ply")
     _, aux = load_ply(ply, device=dev)
     step_losses = [r["loss"] for r in log]
     first, last = float(np.mean(step_losses[:10])), float(np.mean(step_losses[-10:]))
-    loss_after = views_loss(trainer)
+    loss_after = views_loss(trainer, True)
+    raw_after = views_loss(trainer, False)
     densified = [r["densify"] for r in log if r["densify"]]
-    emit({"phase": "train", "views": n_views, "width": width, "height": height,
+    frame_blocks = -(-width // 16) * -(-height // 16)
+    extra = {}
+    if options:
+        *_, extra_arrays = load_checkpoint(
+            os.path.join(model_dir, f"chkpnt{steps}.npz"), device=dev)
+        want = app_lib.state_to_arrays(trainer.app)
+        back = app_lib.state_to_arrays(app_lib.state_from_arrays(
+            app_lib.init_appearance(kind, n_views, device=dev), extra_arrays))
+        extra = {"appearance": kind, "ckpt_app_keys": len(extra_arrays),
+                 "ckpt_app_reloads": sorted(back) == sorted(want) and all(
+                     np.array_equal(back[k], want[k]) for k in want),
+                 "frame_blocks": frame_blocks,
+                 "raw_views_loss_before": raw_before, "raw_views_loss_after": raw_after}
+    emit({"phase": phase, "views": n_views, "width": width, "height": height,
           "points": n, "steps": len(log), "setup_s": setup_s, "cli_s": cli_s,
           "launches": launches, "attempts": sum(r["attempts"] for r in log),
-          "views_loss_before": loss_before, "views_loss_after": loss_after,
+          "views_loss_before": loss_before, "views_loss_after": loss_after, **extra,
           "step_loss_first10": first, "step_loss_last10": last,
           "dn_loss_live_steps": sum(r["dn_loss"] > 0 for r in log),
           "mv_steps": len(mv), "neighbours": [len(v.nearest_ids)
@@ -704,20 +770,27 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40):
           f"blend_fwd launched {launches['blend_fwd']} times")
     check(all(np.isfinite(x) for x in step_losses), "non-finite loss")
     check(all(v.nearest_ids for v in trainer.scene.train_views), "a view has no neighbour")
-    check(len(mv) > 0, "no step ran the multi-view losses")
+    check(len(mv) >= 5, f"only {len(mv)} steps ran the multi-view losses")
     for r in mv:
         check(np.isfinite(r["ncc_loss"]) and np.isfinite(r["geo_loss"])
               and r["ncc_loss"] > 0 and r["geo_loss"] > 0,
               f"multi-view losses {r['ncc_loss']}, {r['geo_loss']} on a multi-view step")
-    for name in ("sample_fwd", "sample_bwd", "warp_sample"):
+        check((0 < r["mv_blocks"] <= frame_blocks) if options else r["mv_blocks"] == 0,
+              f"{r['mv_blocks']} NCC blocks on a multi-view step")
+    ncc_kernel, unused = (("warp_sample_blocks", "warp_sample") if options
+                          else ("warp_sample", "warp_sample_blocks"))
+    for name in ("sample_fwd", "sample_bwd", ncc_kernel):
         check(launches[name] == len(mv),
               f"{name} launched {launches[name]} times for {len(mv)} multi-view steps")
+    check(launches[unused] == 0, f"{unused} launched {launches[unused]} times")
     check(loss_after < loss_before, f"loss did not fall: {loss_before} -> {loss_after}")
     check(len(densified) == 2, f"densify ran {len(densified)} times")
     check(int(aux.alive.sum()) == int(trainer.aux.alive.sum()), "PLY does not load back")
+    if options:
+        check(extra["ckpt_app_keys"] > 0 and extra["ckpt_app_reloads"],
+              "the checkpoint's appearance state does not reload")
     shutil.rmtree(WORK, ignore_errors=True)
     return launches
-
 
 def applied_pairs(feats, binning, n_contrib, cfg, width, height):
     """[H, W] pairs each pixel applied: those of its tile's list before its
@@ -917,6 +990,7 @@ def phase_timing_train(dev, width=1920, height=1080, n=100_000):
     (B2 ms, B2 bound)."""
     import torch
 
+    from gsjax_torch.model import appearance as app_lib
     from gsjax_torch.model import gaussians as gm
     from gsjax_torch.ops.raster import RasterConfig, render, render_cuda
     from gsjax_torch.ops.raster.binning import bin_gaussians
@@ -1006,6 +1080,13 @@ def phase_timing_train(dev, width=1920, height=1080, n=100_000):
     out["train_step_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     out["profile"] = profile_step(lambda: train_step(params, aux, adam, cam, gt, bg, lrs,
                                                      cfg, LossConfig(reg_on=True)))
+    # a reg-on step with each appearance model (the view's row; GOF's CNN)
+    for kind in ("gs", "pgsr", "gof"):
+        app = app_lib.init_appearance(kind, 1, torch.Generator().manual_seed(0), dev)
+        step = lambda: train_step(params, aux, adam, cam, gt, bg, lrs, cfg,
+                                  LossConfig(reg_on=True, appearance=kind),
+                                  app_embedding=app.table[0], app_net=app.net)
+        out[f"train_step_app_{kind}_ms"] = event_ms(step, reps=5)
     emit({"phase": "timing_train", "width": width, "height": height, "gaussians": n,
           "pairs": binning.num_live, **out, "b2_bound": bound})
     return out["b2_depth_ms"], bound
@@ -1014,14 +1095,15 @@ def phase_timing_train(dev, width=1920, height=1080, n=100_000):
 def mv_scene(width, height, n, dev, ref=2, near=3, n_views=6):
     """bench.py's gaussians seen from two neighbouring arc poses of the train
     scene (fx = 0.9 width, as data/synth.py writes it): the reference view's
-    render (median depth, normal), both views' luma, and the reference's
-    depth-valid pixels backprojected to world points (the multi-view loss's
-    queries in the neighbour)."""
+    render (median depth, normal), both views' luma, the reference's pixels
+    backprojected to world points, those with a depth (the multi-view loss's
+    queries in the neighbour), and the loss's geometric mask and weights
+    (`d_mask`, `weights`: `multiview._geo_terms` on those queries)."""
     import torch
 
     from gsjax_torch.core.transforms import focal2fov
     from gsjax_torch.ops.raster import Camera, RasterConfig, render
-    from gsjax_torch.train.multiview import _invert_rigid
+    from gsjax_torch.train.multiview import _geo_terms, backproject
 
     means, scales, quats, opac, shs = bench_gaussians(n)
     fov = (focal2fov(0.9 * width, width), focal2fov(0.9 * width, height))
@@ -1034,14 +1116,13 @@ def mv_scene(width, height, n, dev, ref=2, near=3, n_views=6):
     gray = [(o["render"] * torch.tensor([0.299, 0.587, 0.114], device=dev)).sum(-1)
             .contiguous() for o in outs]
     md = outs[0]["median_depth"]
-    cam = cams[0]
-    xs = (torch.arange(width, device=dev) - cam.cx) / cam.fx
-    ys = (torch.arange(height, device=dev) - cam.cy) / cam.fy
-    pts_cam = torch.stack([md * xs[None, :], md * ys[:, None], md], -1)[md > 0]
-    inv = _invert_rigid(cam.world_view)
+    world = backproject(md, cams[0])
+    with torch.no_grad():
+        _, _, d_mask, weights, _, _ = _geo_terms(
+            world, md, *args, torch.ones(n, dtype=torch.bool, device=dev), *cams, cfg, 1.0)
     return {"args": args, "cams": cams, "cfg": cfg, "depth": md,
-            "normal": outs[0]["normal"], "gray": gray,
-            "points": pts_cam @ inv[:3, :3].T + inv[:3, 3]}
+            "normal": outs[0]["normal"], "gray": gray, "points": world[md > 0],
+            "d_mask": d_mask, "weights": weights}
 
 
 def timed_once(fn):
@@ -1146,18 +1227,10 @@ def phase_parity_sample(width, height, n, dev, scene=None):
 def scene_taps(sc):
     """Tap positions [49, H, W] of the reference view's homographies into the
     neighbour (the NCC's, from the rendered depth and normal)."""
-    import torch
-
     from gsjax_torch.ops.ncc import neighbour_taps
-    from gsjax_torch.train.multiview import _invert_rigid
 
-    ref, near = sc["cams"]
-    nrm = sc["normal"]
-    nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-    rel = near.world_view @ _invert_rigid(ref.world_view)
-    un, vn = neighbour_taps(sc["depth"], nrm, rel[:3, :3], rel[:3, 3],
-                            (ref.fx, ref.fy, ref.cx, ref.cy),
-                            (near.fx, near.fy, near.cx, near.cy))
+    args = ncc_inputs(sc)
+    un, vn = neighbour_taps(args[0].detach(), args[1].detach(), *args[4:])
     return un.contiguous(), vn.contiguous()
 
 
@@ -1185,6 +1258,81 @@ def phase_parity_warp(sc):
     check(max(err) <= WARP_MAX, f"B6 max error {max(err)}")
     check(out["inside_frac"] > 0.5, f"only {out['inside_frac']} of the taps in the image")
     return out
+
+
+def ncc_inputs(sc):
+    """The NCC's arguments on the multi-view cell: depth and unit normal
+    (leaves that take gradients), the luma frames, the reference -> neighbour
+    motion and both intrinsics."""
+    from gsjax_torch.train.multiview import _invert_rigid
+
+    ref, near = sc["cams"]
+    nrm = sc["normal"] / sc["normal"].norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    rel = near.world_view @ _invert_rigid(ref.world_view)
+    return (sc["depth"].clone().requires_grad_(True), nrm.clone().requires_grad_(True),
+            sc["gray"][0], sc["gray"][1], rel[:3, :3], rel[:3, 3],
+            (ref.fx, ref.fy, ref.cx, ref.cy), (near.fx, near.fy, near.cx, near.cy))
+
+
+def ncc_dense_masked(args, sc):
+    """The dense NCC's loss terms on the mask, as `patchmatch_losses` sums
+    them: (ncc_sum, ncc_cnt)."""
+    import torch
+
+    from gsjax_torch.ops.ncc import warp_patch_ncc
+
+    cc, valid = warp_patch_ncc(*args)
+    ncc = torch.clamp(1.0 - cc, 0.0, 2.0)
+    mask = ((ncc < 0.9) & valid & sc["d_mask"]).detach()
+    return torch.where(mask, ncc * sc["weights"], 0.0).sum(), mask.sum()
+
+
+def phase_parity_ncc_blocks(sc):
+    """B6 launched on the compacted blocks' taps against its twin, and the
+    block-compacted NCC against the dense one on the reference view's
+    geometric mask, both on the card."""
+    import torch
+
+    from gsjax_torch.ops import warp_sample as ws
+    from gsjax_torch.ops.ncc import block_neighbour_taps, warp_patch_ncc_blocks
+
+    args = ncc_inputs(sc)
+    gray_n = args[3]
+    un, vn = block_neighbour_taps(args[0].detach(), args[1].detach(), sc["d_mask"], *args[4:])
+    pk = ws.warp_sample_blocks(gray_n, un, vn)
+    pt, plain = timed_once(lambda: ws.bilinear_ref(gray_n, un, vn))
+    err = [float((pk[i] - pt[i]).abs().max()) for i in range(3)]
+    del pk, pt, un, vn
+
+    s_b, c_b, win_rej, n_blocks = warp_patch_ncc_blocks(*args, sc["d_mask"], sc["weights"])
+    g_b = torch.autograd.grad(s_b, args[:2])
+    s_d, c_d = ncc_dense_masked(args, sc)
+    g_d = torch.autograd.grad(s_d, args[:2])
+    h, w = sc["depth"].shape
+    frame_blocks = -(-h // 16) * -(-w // 16)
+    grad_err = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_b, g_d)]
+    out = {"blocks": n_blocks, "frame_blocks": frame_blocks,
+           "block_share": n_blocks / frame_blocks,
+           "mask_pixels": int(sc["d_mask"].sum()),
+           "mask_pixel_share": float(sc["d_mask"].float().mean()),
+           "taps": n_blocks * 49 * 256, "twin_ms": plain, "value_max_abs_err": err[0],
+           "du_max_abs_err": err[1], "dv_max_abs_err": err[2],
+           "ncc_sum_blocks": float(s_b.detach()), "ncc_sum_dense": float(s_d.detach()),
+           "ncc_sum_rel_err": abs(float(s_b.detach()) - float(s_d.detach())) / abs(float(s_d.detach())),
+           "ncc_cnt_blocks": int(c_b), "ncc_cnt_dense": int(c_d),
+           "grad_depth_rel_err": grad_err[0], "grad_normal_rel_err": grad_err[1],
+           "grads_finite": all(bool(torch.isfinite(g).all()) for g in g_b),
+           "win_rej": win_rej}
+    emit({"phase": "parity_ncc_blocks", "height": h, "width": w, **out})
+    check(max(err) <= WARP_MAX, f"B6 on compacted taps: max error {max(err)}")
+    check(0 < n_blocks <= frame_blocks, f"{n_blocks} blocks selected")
+    check(out["ncc_cnt_blocks"] > 0, "no pixel in the NCC loss")
+    check(out["ncc_sum_rel_err"] <= NCC_RTOL, f"ncc_sum off by {out['ncc_sum_rel_err']}")
+    check(out["ncc_cnt_blocks"] == out["ncc_cnt_dense"],
+          f"ncc_cnt {out['ncc_cnt_blocks']} against {out['ncc_cnt_dense']}")
+    check(out["grads_finite"] and max(grad_err) <= NCC_GRAD,
+          f"block NCC gradients off by {grad_err} of scale")
+    return {**out, "max_abs_err": max(err)}
 
 
 def point_interactions(qr, res, cfg):
@@ -1300,17 +1448,19 @@ def sample_bounds(qr, res, g, cfg):
 
 
 def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
-    """B3, B5, B6 against their bounds, the multi-view ops forward + backward
-    and a train step with the multi-view losses; returns (ms, bounds)."""
+    """B3, B5, B6 (on every pixel's taps and on the compacted blocks' taps)
+    against their bounds, the multi-view ops forward + backward and a train
+    step with the multi-view losses, dense and block-compacted; returns (ms,
+    bounds)."""
     import torch
     import torch.nn.functional as F
 
     from gsjax_torch.model import gaussians as gm
     from gsjax_torch.ops import sample_cuda
     from gsjax_torch.ops import warp_sample as ws
-    from gsjax_torch.ops.ncc import warp_patch_ncc
+    from gsjax_torch.ops.ncc import (block_neighbour_taps, warp_patch_ncc,
+                                     warp_patch_ncc_blocks)
     from gsjax_torch.ops.sample import sample_depth
-    from gsjax_torch.train.multiview import _invert_rigid
     from gsjax_torch.train.step import LossConfig, train_step
 
     cfg = sc["cfg"]
@@ -1342,6 +1492,19 @@ def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
     del grid
     taps = un.numel()
     b6_bound = roofline(5 * taps * 4 + hn * wn * 4, OPS_WARP * taps)
+    # B6 on the compacted blocks' taps [B, 49, 256] (the block NCC's launch)
+    args = ncc_inputs(sc)
+    unb, vnb = block_neighbour_taps(args[0].detach(), args[1].detach(), sc["d_mask"],
+                                    *args[4:])
+    out["b6b_ms"] = event_ms(lambda: ws.warp_sample_blocks(gray_n, unb, vnb))
+    grid = torch.stack([unb / (wn - 1) * 2 - 1, vnb / (hn - 1) * 2 - 1], -1) \
+        .reshape(1, -1, unb.shape[2], 2)
+    out["grid_sample_blocks_ms"] = event_ms(lambda: F.grid_sample(
+        gray_n[None, None], grid, mode="bilinear", padding_mode="border", align_corners=True))
+    del grid
+    out["block_taps"] = unb.numel()
+    b6b_bound = roofline(5 * unb.numel() * 4 + hn * wn * 4, OPS_WARP * unb.numel())
+    del unb, vnb
 
     # the multi-view ops forward + backward, as the train step runs them
     pts = sc["points"].clone().requires_grad_(True)
@@ -1354,19 +1517,26 @@ def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
         return torch.autograd.grad(loss, [pts, *leaves])
 
     out["sample_depth_fwd_bwd_ms"] = event_ms(sample_fwd_bwd, reps=5)
-    depth = sc["depth"].clone().requires_grad_(True)
-    nrm = sc["normal"] / sc["normal"].norm(dim=-1, keepdim=True).clamp_min(1e-12)
-    nrm = nrm.clone().requires_grad_(True)
-    rel = near.world_view @ _invert_rigid(ref.world_view)
 
     def ncc_fwd_bwd():
-        cc, valid = warp_patch_ncc(depth, nrm, sc["gray"][0], gray_n, rel[:3, :3],
-                                   rel[:3, 3], (ref.fx, ref.fy, ref.cx, ref.cy),
-                                   (near.fx, near.fy, near.cx, near.cy))
-        return torch.autograd.grad(torch.where(valid, 1 - cc, 0.0).sum(), [depth, nrm])
+        cc, valid = warp_patch_ncc(*args)
+        return torch.autograd.grad(torch.where(valid, 1 - cc, 0.0).sum(), args[:2])
 
     out["warp_patch_ncc_fwd_bwd_ms"] = event_ms(ncc_fwd_bwd, reps=5)
     del un, vn
+
+    def blocks_fwd_bwd():
+        s_b, *_ = warp_patch_ncc_blocks(*args, sc["d_mask"], sc["weights"])
+        return torch.autograd.grad(s_b, args[:2])
+
+    out["warp_patch_ncc_blocks_fwd_bwd_ms"] = event_ms(blocks_fwd_bwd, reps=5)
+    for name, fn in (("warp_patch_ncc", ncc_fwd_bwd), ("warp_patch_ncc_blocks", blocks_fwd_bwd)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_fwd_bwd_peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
 
     # train steps with the multi-view losses (the step ends in a host read)
     params, aux = bench_params(bench_gaussians(n), dev)
@@ -1394,9 +1564,21 @@ def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
     torch.cuda.synchronize()
     out["train_step_mv_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     out["profile"] = profile_step(step)
+    step_c = lambda: train_step(params, aux, adam, ref, gt, bg, lrs, cfg,
+                                LossConfig(reg_on=True, mv_on=True, ncc_compact=True), **mv)
+    metrics = step_c()[3]
+    out["step_compact_blocks"] = metrics["mv_blocks"]
+    out["step_compact_ncc_loss"] = metrics["ncc_loss"]
+    out["train_step_mv_compact_ms"] = event_ms(step_c, reps=5)
+    torch.cuda.reset_peak_memory_stats()
+    step_c()
+    torch.cuda.synchronize()
+    out["train_step_mv_compact_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     emit({"phase": "timing_mv", "width": width, "height": height, "gaussians": n, **out,
-          "b3_bound": b3_bound, "b5_bound": b5_bound, "b6_bound": b6_bound})
-    return out, {"sample_fwd": b3_bound, "sample_bwd": b5_bound, "warp_sample": b6_bound}
+          "b3_bound": b3_bound, "b5_bound": b5_bound, "b6_bound": b6_bound,
+          "b6b_bound": b6b_bound})
+    return out, {"sample_fwd": b3_bound, "sample_bwd": b5_bound, "warp_sample": b6_bound,
+                 "warp_sample_blocks": b6b_bound}
 
 
 def sphere_query(width, height, n, dev, view=0, n_views=8, pixel_order=False):
@@ -1729,6 +1911,7 @@ def main():
     scene = mv_scene(1920, 1080, 100_000, dev)
     sample_err, qr, rows, cot = phase_parity_sample(1920, 1080, 100_000, dev, scene)
     warp_err = phase_parity_warp(scene)
+    blocks_err = phase_parity_ncc_blocks(scene)
     mv_ms, mv_bound = phase_timing_mv(dev, scene, qr, rows, cot)
     del scene, qr, rows, cot
     phase_parity_integrate(640, 360, 20_000, dev)
@@ -1740,14 +1923,18 @@ def main():
     mesh_launches = phase_mesh(dev)
     serve_launches = phase_slice(dev)
     train_launches = phase_train(dev)
+    compact_launches = phase_train(dev, options=True)
     kernel_ms, bound = phase_timing(dev, twin_ms)
     b2_ms, b2_bound = phase_timing_train(dev)
+
+    def by_path(name, render=0):
+        return {"render": render, "train": train_launches[name],
+                "train_compact": compact_launches[name], "mesh": mesh_launches[name]}
 
     def entry(name, replaces, max_err, ms, plain_ms, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"gsjax_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": train_launches[name],
-                "launches_by_path": {"render": 0, "train": train_launches[name],
-                                     "mesh": mesh_launches[name]},
+                "launches_by_path": by_path(name),
                 "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": mv_bound[name]["bound_ms"],
                 "bound_by": mv_bound[name]["bound_by"], "library_ms": library_ms}
@@ -1756,16 +1943,14 @@ def main():
         {"name": "blend_fwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_fwd.cu",
          "replaces": "gsjax/ops/raster/render_pallas.py:644",
          "launches": train_launches["blend_fwd"],
-         "launches_by_path": {"render": serve_launches, "train": train_launches["blend_fwd"],
-                              "mesh": mesh_launches["blend_fwd"]},
+         "launches_by_path": by_path("blend_fwd", serve_launches),
          "max_abs_err": max(full_err["color_max_abs_err"], full_err["alpha_max_abs_err"]),
          "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": bound["bound_ms"],
          "bound_by": bound["bound_by"], "library_ms": None},
         {"name": "blend_bwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_bwd.cu",
          "replaces": "gsjax/ops/raster/render_pallas.py:806",
          "launches": train_launches["blend_bwd"],
-         "launches_by_path": {"render": 0, "train": train_launches["blend_bwd"],
-                              "mesh": mesh_launches["blend_bwd"]},
+         "launches_by_path": by_path("blend_bwd"),
          "max_abs_err": max(e["pair_max_err"] for e in bwd_err.values()),
          "ms": b2_ms, "plain_ms": bwd_twin_ms, "bound_ms": b2_bound["bound_ms"],
          "bound_by": b2_bound["bound_by"], "library_ms": None},
@@ -1774,8 +1959,7 @@ def main():
         {"name": "integrate_fwd", "route": "cuda", "source": "gsjax_torch/csrc/integrate_fwd.cu",
          "replaces": "gsjax/ops/raster/sample_pallas.py:79 (integrate mode, :154-159)",
          "launches": mesh_launches["integrate_fwd"],
-         "launches_by_path": {"render": 0, "train": train_launches["integrate_fwd"],
-                              "mesh": mesh_launches["integrate_fwd"]},
+         "launches_by_path": by_path("integrate_fwd"),
          "max_abs_err": int_err["T_max_abs_err"], "ms": b4_ms, "plain_ms": int_err["twin_ms"],
          "bound_ms": b4_bound["bound_ms"], "bound_by": b4_bound["bound_by"],
          "library_ms": None},
@@ -1785,7 +1969,19 @@ def main():
         entry("warp_sample", "gsjax/ops/warp_sample.py:60",
               max(warp_err[k] for k in ("value_max_abs_err", "du_max_abs_err",
                                         "dv_max_abs_err")),
-              mv_ms["b6_ms"], warp_err["twin_ms"], mv_ms["grid_sample_ms"])]})
+              mv_ms["b6_ms"], warp_err["twin_ms"], mv_ms["grid_sample_ms"]),
+        # B6's kernel launched by gsjax's second entry point into the same
+        # pallas_call, on the block-compacted NCC's path (GSJAX_NCC_COMPACT=1)
+        {"name": "warp_sample_blocks", "route": "cuda",
+         "source": "gsjax_torch/csrc/warp_sample.cu",
+         "replaces": "gsjax/ops/warp_sample.py:230",
+         "launches": compact_launches["warp_sample_blocks"],
+         "launches_by_path": by_path("warp_sample_blocks"),
+         "max_abs_err": blocks_err["max_abs_err"], "ms": mv_ms["b6b_ms"],
+         "plain_ms": blocks_err["twin_ms"],
+         "bound_ms": mv_bound["warp_sample_blocks"]["bound_ms"],
+         "bound_by": mv_bound["warp_sample_blocks"]["bound_by"],
+         "library_ms": mv_ms["grid_sample_blocks_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,6 +12,11 @@
 // gradient, so a corner pair clamped to one pixel gives zero). No `ok` plane:
 // the caller masks taps outside the image (ncc.py:165-167).
 //
+// The same kernel replaces the TPU kernel's second entry point,
+// `warp_sample_blocks` (warp_sample.py:230), which runs that `pallas_call` on
+// the taps [B, K, 256] of compacted 16x16 pixel blocks: positions of any
+// shape reach it as n flat taps (`ops/warp_sample.py:warp_sample_blocks`).
+//
 // What bounds it on an H100: bytes. Each output element reads its two
 // coordinates (8 bytes) and writes three values (12 bytes) for ~30 fp32
 // operations; the four corner reads hit the image, which is small (8 MB at

@@ -8,6 +8,13 @@ float32 planes: the value, d/du and d/dv. For tensors on the CPU it runs its
 plain-PyTorch twin `bilinear_ref`; for CUDA tensors it launches the kernel
 or raises. `warp_sample.launches` counts kernel launches.
 
+`warp_sample_blocks` is the same kernel launched on the taps of compacted
+16x16 pixel blocks, [B, K, 256] (gsjax's `warp_sample_blocks`, which runs
+the same `pallas_call` on pre-blocked taps), with its own count
+`warp_sample_blocks.launches`, so that a run can tell the dense and the
+block-compacted NCC apart. gsjax's `ok` plane flags taps outside the TPU
+kernel's bf16 window; the port samples every tap exactly, so it has none.
+
 The semantics are those of gsjax's off-TPU sampler `ncc._bilinear`
 (ncc.py:39-58): corner indices clamped to the image one by one, weights from
 the unclamped coordinate, and the derivative that autodiff of that formula
@@ -50,42 +57,64 @@ def bilinear_ref(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.T
     return torch.stack([val, du, dv])
 
 
-def warp_sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[3, K, H, W] float32 (value, d/du, d/dv) of `img` [Hn, Wn] float32 at
-    tap positions u, v [K, H, W] float32, all on one device."""
-    if img.device.type == "cpu":
-        return bilinear_ref(img, u, v)
+def _launch(name: str, img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """B6 on CUDA tensors: [3, *u.shape] planes, and whether it launched (an
+    empty set of taps launches nothing)."""
     dev = img.device
     if dev.type != "cuda":
-        raise ValueError(f"warp_sample runs on cuda or cpu tensors, not {dev}")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
     _check("img", img, torch.float32, (img.shape[0], img.shape[1]), dev)
     _check("u", u, torch.float32, tuple(u.shape), dev)
     _check("v", v, torch.float32, tuple(u.shape), dev)
     if img.numel() == 0:
-        raise ValueError("warp_sample needs a non-empty image")
+        raise ValueError(f"{name} needs a non-empty image")
     out = torch.empty((3,) + tuple(u.shape), device=dev)
     n = u.numel()
     if n == 0:
-        return out
+        return out, False
     fn = _build.load("warp_sample").gsjax_warp_sample
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(img.data_ptr(), img.shape[0], img.shape[1], u.data_ptr(), v.data_ptr(),
                 out.data_ptr(), n, stream)
     if rc != 0:
-        raise RuntimeError(f"warp_sample kernel launch failed: cudaError {rc}")
-    warp_sample.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return out, True
+
+
+def warp_sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[3, K, H, W] float32 (value, d/du, d/dv) of `img` [Hn, Wn] float32 at
+    tap positions u, v [K, H, W] float32, all on one device."""
+    if img.device.type == "cpu":
+        return bilinear_ref(img, u, v)
+    out, launched = _launch("warp_sample", img, u, v)
+    warp_sample.launches += launched
     return out
 
 
 warp_sample.launches = 0
 
 
+def warp_sample_blocks(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[3, B, K, P] float32 (value, d/du, d/dv) of `img` [Hn, Wn] float32 at
+    the tap positions u, v [B, K, P] float32 of B compacted pixel blocks
+    (P = 256 pixels a block, K taps a pixel), all on one device."""
+    if img.device.type == "cpu":
+        return bilinear_ref(img, u, v)
+    out, launched = _launch("warp_sample_blocks", img, u, v)
+    warp_sample_blocks.launches += launched
+    return out
+
+
+warp_sample_blocks.launches = 0
+
+
 class WarpSample(torch.autograd.Function):
     """Differentiable bilinear sample: value = fn(img, u, v)[0], with
     d(u) = d(value) fn[1] and d(v) = d(value) fn[2]; `fn` is `warp_sample`
-    (the kernel on CUDA tensors, the twin on the CPU) or `bilinear_ref` on
-    any device. Only u and v get gradients."""
+    or `warp_sample_blocks` (the kernel on CUDA tensors, the twin on the
+    CPU) or `bilinear_ref` on any device. Only u and v get gradients (gsjax's
+    `_ws_bwd`, which is also `warp_sample_blocks`' `_wsb_bwd`)."""
 
     @staticmethod
     def forward(ctx, img, u, v, fn):

@@ -4,7 +4,8 @@
 
 `main` mirrors the repository's `train.py` (the reference `train.py:382-421`
 flag surface) plus `--device`: training runs on cuda unless `--device cpu`
-is given. `--ip` defaults to none here, since the viewer server is not
+is given. `--use_decoupled_appearance` and `GSJAX_NCC_COMPACT=1` work as in
+gsjax. `--ip` defaults to none here, since the viewer server is not
 ported; asking for it, or for sharding, multi-host, `--profile_iter` or
 `--debug`, raises.
 """

@@ -16,10 +16,21 @@ densification writes new gaussians into free slots.
 With regularisation on, a view with neighbours draws one of them exactly
 where gsjax does (loop.py:388-393) and the step adds the multi-view losses;
 the luma frames are cached on the device beside the gt frames.
+`GSJAX_NCC_COMPACT=1` (read, as gsjax reads it, only when a neighbour is
+drawn; default 0) runs the NCC on the compacted 16x16 blocks of the
+geometric mask. gsjax sizes those blocks by a capacity bucket; the port
+compacts to the real count and needs none.
+
+`--use_decoupled_appearance 1|2|3` (gs, gof, pgsr) trains a per-view
+appearance model: the step maps the render before its L1 term, and after
+the step the loop takes a whole-table Adam step of the embeddings (and, for
+gof, of the CNN) at gsjax's learning rates (loop.py:537-554). Checkpoints
+carry its state under `x_app/...`, as gsjax's, and `--start_checkpoint`
+restores it.
 
 Not ported (each raises when asked for): sharding and multi-host, the SIBR
-viewer server, the NaN probe, the debug mosaics, TensorBoard, the profiler
-trace and the decoupled appearance models.
+viewer server, the NaN probe, the debug mosaics, TensorBoard and the
+profiler trace.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import torch
 
 from gsjax_torch.data.readers import (SceneInfo, build_nearest_view_graph,
                                       load_scene, write_scene_artifacts)
+from gsjax_torch.model import appearance as app_lib
 from gsjax_torch.model import gaussians as gm
 from gsjax_torch.model.io import load_checkpoint, save_checkpoint, save_ply
 from gsjax_torch.ops.knn import mean_knn_dist2
@@ -42,6 +54,9 @@ from gsjax_torch.ops.raster import RasterConfig, render
 from gsjax_torch.train import losses
 from gsjax_torch.train.step import LossConfig, train_step
 from gsjax_torch.utils.schedules import expon_lr
+
+APPEARANCE_KINDS = {0: "no", 1: "gs", 2: "gof", 3: "pgsr"}
+
 
 def next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 1).bit_length()
@@ -66,6 +81,8 @@ class Trainer:
     max_per_tile: int = 1 << 10
     iteration: int = 0
     generator: torch.Generator | None = None
+    app: app_lib.AppearanceState = dataclasses.field(
+        default_factory=lambda: app_lib.init_appearance("no", 0))
     random_background: bool = False
     # device-resident gt and luma frames, LRU bounded in bytes
     gt_cache_bytes: int = 512 * 1024 * 1024
@@ -74,7 +91,7 @@ class Trainer:
     @staticmethod
     def create(scene: SceneInfo, opt, model_path, device, sh_degree=3, sg_degree=0,
                kernel_size=0.0, white_background=False, disable_filter3d=False,
-               seed=0):
+               seed=0, appearance="no"):
         device = torch.device(device)
         knn = mean_knn_dist2(scene.points)
         capacity = next_pow2(int(scene.points.shape[0] * 1.5) + 1)
@@ -91,11 +108,13 @@ class Trainer:
             params.scaling.copy_(torch.as_tensor(scaling, dtype=torch.float32))
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
+        app = app_lib.init_appearance(appearance, len(scene.train_views),
+                                      torch.Generator().manual_seed(seed), device)
         t = Trainer(scene=scene, params=params, aux=aux, adam=gm.adam_init(params),
                     opt=opt, model_path=model_path, device=device,
                     kernel_size=kernel_size, white_background=white_background,
                     disable_filter3d=disable_filter3d, sh_degree=sh_degree,
-                    sg_degree=sg_degree, generator=gen)
+                    sg_degree=sg_degree, generator=gen, app=app)
         t.refresh_filter3d()
         return t
 
@@ -179,6 +198,26 @@ class Trainer:
                 self.params, self.aux, self.adam,
                 next_pow2(int(self.params.capacity * 2.5)))
 
+    def step_appearance(self, uid: int, metrics):
+        """The appearance optimiser after a step (gsjax loop.py:537-554)."""
+        o = self.opt
+        kind = self.app.kind
+        if kind == "no":
+            return
+        if kind == "gs":
+            lr = expon_lr(self.iteration, o.gs_appearance_lr_init, o.gs_appearance_lr_final,
+                          lr_delay_steps=o.gs_appearance_lr_delay_steps,
+                          lr_delay_mult=o.gs_appearance_lr_delay_mult,
+                          max_steps=o.iterations)
+        elif kind == "pgsr":
+            lr = o.pgsr_appearance_lr
+        else:
+            lr = o.appearance_embeddings_lr
+        self.app = app_lib.update_table(self.app, uid, metrics["app_grad"], lr)
+        if kind == "gof":
+            self.app = app_lib.update_net(self.app, metrics["app_net_grad"],
+                                          o.appearance_network_lr)
+
     # --- main loop -----------------------------------------------------------
 
     def step(self):
@@ -195,17 +234,22 @@ class Trainer:
         if reg_on and view.nearest_ids and (
                 o.lambda_multi_view_ncc > 0 or o.lambda_multi_view_geo > 0):
             near = self.scene.train_views[random.choice(view.nearest_ids)]
+        ncc_compact = near is not None and \
+            os.environ.get("GSJAX_NCC_COMPACT", "0") not in ("0", "")
         lcfg = LossConfig(lambda_dssim=o.lambda_dssim,
                           lambda_depth_normal=o.lambda_depth_normal,
                           lambda_mv_ncc=o.lambda_multi_view_ncc,
                           lambda_mv_geo=o.lambda_multi_view_geo,
                           reg_on=reg_on, mv_on=near is not None,
                           pixel_noise_th=o.multi_view_pixel_noise_th,
-                          patch_size=o.multi_view_patch_size)
-        mv_args = {}
+                          patch_size=o.multi_view_patch_size,
+                          appearance=self.app.kind, ncc_compact=ncc_compact)
+        step_args = {}
         if near is not None:
-            mv_args = dict(near_cam=near.camera, gray_r=self.gray_for(view),
-                           gray_n=self.gray_for(near))
+            step_args = dict(near_cam=near.camera, gray_r=self.gray_for(view),
+                             gray_n=self.gray_for(near))
+        if self.app.kind != "no":
+            step_args.update(app_embedding=self.app.table[view.uid], app_net=self.app.net)
         if self.random_background:
             bg = torch.rand(3, generator=self.generator, device=self.device)
         else:
@@ -217,7 +261,7 @@ class Trainer:
         for attempt in range(1, 5):
             self.params, self.aux, self.adam, metrics = train_step(
                 self.params, self.aux, self.adam, view.camera, self.gt_for(view),
-                bg, self.lrs(), self.raster_cfg(require_depth=reg_on), lcfg, **mv_args)
+                bg, self.lrs(), self.raster_cfg(require_depth=reg_on), lcfg, **step_args)
             if not metrics["overflowed"]:
                 break
             self.monitor_capacity(metrics)
@@ -231,6 +275,7 @@ class Trainer:
         if not np.isfinite(metrics["loss"]):
             raise FloatingPointError(
                 f"non-finite loss at iteration {it} (view {view.image_name})")
+        self.step_appearance(view.uid, metrics)
 
         # densification schedule (train.py:233-258)
         if it < o.densify_until_iter:
@@ -274,14 +319,16 @@ class Trainer:
                  self.params, self.aux)
 
     def save_ckpt(self):
+        # the appearance state (table, GOF net, both Adam states) rides in
+        # `extra` as x_app/..., as gsjax's (loop.py:639-642)
         save_checkpoint(os.path.join(self.model_path, f"chkpnt{self.iteration}.npz"),
-                        self.params, self.aux, self.adam, self.iteration)
+                        self.params, self.aux, self.adam, self.iteration,
+                        app_lib.state_to_arrays(self.app))
 
 
 def _refuse_unported(lp, pp, args):
     """Raise for the gsjax options this port leaves out."""
     asks = {
-        "--use_decoupled_appearance (appearance models)": lp.use_decoupled_appearance,
         "--ip (the SIBR viewer server)": getattr(args, "ip", None),
         "--n_devices != 1 (sharding)": int(getattr(args, "n_devices", 1) or 1) != 1,
         "multi-host (--dist_*)": (getattr(args, "dist_coordinator", "")
@@ -320,11 +367,13 @@ def run_training(lp, op, pp, args, device=None, on_step=None):
     trainer = Trainer.create(
         scene, op, lp.model_path, dev, sh_degree=lp.sh_degree, sg_degree=lp.sg_degree,
         kernel_size=lp.kernel_size, white_background=lp.white_background,
-        disable_filter3d=lp.disable_filter3D, seed=int(getattr(args, "seed", 0) or 0))
+        disable_filter3d=lp.disable_filter3D, seed=int(getattr(args, "seed", 0) or 0),
+        appearance=APPEARANCE_KINDS[lp.use_decoupled_appearance])
     trainer.random_background = bool(getattr(op, "random_background", False))
     if getattr(args, "start_checkpoint", None):
-        p, a, ad, it, _extra = load_checkpoint(args.start_checkpoint, device=dev)
+        p, a, ad, it, extra = load_checkpoint(args.start_checkpoint, device=dev)
         trainer.params, trainer.aux, trainer.adam, trainer.iteration = p, a, ad, it
+        trainer.app = app_lib.state_from_arrays(trainer.app, extra)
 
     test_iters = set(getattr(args, "test_iterations", [7000, 30000])) | {op.iterations}
     save_iters = set(getattr(args, "save_iterations", [7000, 30000])) | {op.iterations}

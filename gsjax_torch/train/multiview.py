@@ -17,6 +17,11 @@ rendered depth > 0 and a projection inside the neighbour's frustum (gsjax's
 `_geo_terms_compact`, its default). That pre-mask is a superset of the
 loss's own mask, so the losses and gradients are those of the dense form.
 The port compacts to the real count, so it needs no query capacity.
+
+With `ncc_compact` the NCC runs only on the 16x16 pixel blocks that hold a
+pixel of the geometric mask (`ops.ncc.warp_patch_ncc_blocks`: kernel B6
+launched as `warp_sample_blocks`), gsjax's `GSJAX_NCC_COMPACT=1`
+(multiview.py:212-222); its blocks are compacted to their real count too.
 """
 
 from __future__ import annotations
@@ -79,34 +84,42 @@ def _geo_terms(pts_world, median_depth, means3d, scales, rotations, opacities,
             res["max_tile_count"])
 
 
+def backproject(median_depth: torch.Tensor, cam: Camera) -> torch.Tensor:
+    """World points [H,W,3] of an [H,W] median depth rendered by `cam`
+    (loss_utils.py:146-159)."""
+    h, w = median_depth.shape
+    dev = median_depth.device
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) - cam.cx) / cam.fx
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) - cam.cy) / cam.fy
+    pts_cam = torch.stack([median_depth * xs[None, :], median_depth * ys[:, None],
+                           median_depth], -1)
+    inv_r = _invert_rigid(cam.world_view)
+    return pts_cam @ inv_r[:3, :3].T + inv_r[:3, 3]
+
+
 def patchmatch_losses(median_depth: torch.Tensor, normal: torch.Tensor,
                       means3d, scales, rotations, opacities, alive,
                       ref_cam: Camera, near_cam: Camera,
                       gray_r: torch.Tensor, gray_n: torch.Tensor,
                       cfg: RasterConfig, pixel_noise_th: float = 1.0,
-                      patch_size: int = 3):
+                      patch_size: int = 3, ncc_compact: bool = False):
     """PGSR losses of one reference view against one neighbour.
 
     median_depth / normal: [H,W(,3)] rendered in the reference view;
     gray_r / gray_n: [H,W] luma images of the two views. The gaussian
     arguments are those of `sample_depth`. `cfg.backend` picks kernels or
-    twins as for the blend.
+    twins as for the blend. `ncc_compact` runs the block-compacted NCC.
 
-    Returns (ncc_loss, geo_loss, n_queries, near_max_tile_count): two
-    scalar tensors, the number of geometric queries (pixels with a depth
-    that project inside the neighbour's frustum) and the neighbour view's
-    largest tile list, both Python ints."""
-    h, w = median_depth.shape
+    Returns (ncc_loss, geo_loss, n_queries, near_max_tile_count, n_blocks):
+    two scalar tensors, the number of geometric queries (pixels with a depth
+    that project inside the neighbour's frustum), the neighbour view's
+    largest tile list and the NCC's selected 16x16 blocks (0 without
+    `ncc_compact`), all three Python ints."""
     dev = median_depth.device
     fx, fy, cx, cy = ref_cam.fx, ref_cam.fy, ref_cam.cx, ref_cam.cy
 
-    # 1. backproject the median depth -> world points (loss_utils.py:146-159)
-    xs = (torch.arange(w, dtype=torch.float32, device=dev) - cx) / fx
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) - cy) / fy
-    pts_cam = torch.stack([median_depth * xs[None, :], median_depth * ys[:, None],
-                           median_depth], -1)
-    inv_r = _invert_rigid(ref_cam.world_view)
-    pts_world = pts_cam @ inv_r[:3, :3].T + inv_r[:3, 3]
+    # 1. backproject the median depth -> world points
+    pts_world = backproject(median_depth, ref_cam)
 
     # 2+3. the neighbour's median depth along each point's ray, reprojected
     geo_sum, geo_cnt, d_mask, weights, n_queries, near_mtc = _geo_terms(
@@ -120,17 +133,24 @@ def patchmatch_losses(median_depth: torch.Tensor, normal: torch.Tensor,
     nrm = torch.where(good, normal * torch.rsqrt(torch.where(good, nrm2, 1.0)),
                       torch.zeros_like(normal))
     rel_rn = near_cam.world_view @ _invert_rigid(ref_cam.world_view)  # ref -> near
-    sample_fn = select(cfg, dev, ws.warp_sample, ws.bilinear_ref)
-    cc, cc_valid = ncc_ops.warp_patch_ncc(
-        median_depth, nrm, gray_r, gray_n, rel_rn[:3, :3], rel_rn[:3, 3],
-        (fx, fy, cx, cy), (near_cam.fx, near_cam.fy, near_cam.cx, near_cam.cy),
-        radius=patch_size, sample_fn=sample_fn)
-    ncc = torch.clamp(1.0 - cc, 0.0, 2.0)
-    ncc_mask = ((ncc < 0.9) & cc_valid & d_mask).detach()
-    ncc_sum = torch.where(ncc_mask, ncc * weights, torch.zeros_like(ncc)).sum()
+    ncc_args = (median_depth, nrm, gray_r, gray_n, rel_rn[:3, :3], rel_rn[:3, 3],
+                (fx, fy, cx, cy), (near_cam.fx, near_cam.fy, near_cam.cx, near_cam.cy))
+    n_blocks = 0
+    if ncc_compact:
+        sample_fn = select(cfg, dev, ws.warp_sample_blocks, ws.bilinear_ref)
+        ncc_sum, ncc_cnt, _, n_blocks = ncc_ops.warp_patch_ncc_blocks(
+            *ncc_args, d_mask, weights, radius=patch_size, sample_fn=sample_fn)
+    else:
+        sample_fn = select(cfg, dev, ws.warp_sample, ws.bilinear_ref)
+        cc, cc_valid = ncc_ops.warp_patch_ncc(*ncc_args, radius=patch_size,
+                                              sample_fn=sample_fn)
+        ncc = torch.clamp(1.0 - cc, 0.0, 2.0)
+        ncc_mask = ((ncc < 0.9) & cc_valid & d_mask).detach()
+        ncc_sum = torch.where(ncc_mask, ncc * weights, torch.zeros_like(ncc)).sum()
+        ncc_cnt = ncc_mask.sum()
 
     any_mask = geo_cnt > 0
     zero = torch.zeros((), device=dev)
-    return (torch.where(any_mask, ncc_sum / torch.clamp_min(ncc_mask.sum(), 1), zero),
+    return (torch.where(any_mask, ncc_sum / torch.clamp_min(ncc_cnt, 1), zero),
             torch.where(any_mask, geo_sum / torch.clamp_min(geo_cnt, 1), zero),
-            n_queries, near_mtc)
+            n_queries, near_mtc, n_blocks)

@@ -7,8 +7,12 @@ the densification statistics update the model in place.
 
 Once regularisation is on and the caller gives a neighbour view, the PGSR
 multi-view losses (`train.multiview`: the point-query kernels B3 / B5 and
-the NCC sampler B6 on the card) join the loss. The decoupled appearance
-models are a later slice: asking for them raises.
+the NCC sampler B6 on the card, on every pixel or, with
+`LossConfig.ncc_compact`, on the compacted 16x16 blocks of the geometric
+mask) join the loss. A decoupled appearance model (`model.appearance`: gs,
+pgsr or gof) maps the render before its L1 term (gsjax/train/step.py:83-91);
+the step returns the gradients of the view's embedding and of the GOF net,
+and the caller owns their optimiser.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import dataclasses
 
 import torch
 
+from gsjax_torch.model import appearance as app_lib
 from gsjax_torch.model import gaussians as gm
 from gsjax_torch.ops.raster import render
 from gsjax_torch.ops.raster.camera import Camera
@@ -35,18 +40,25 @@ class LossConfig:
     mv_on: bool = False           # a neighbour view is given
     pixel_noise_th: float = 1.0
     patch_size: int = 3
-    appearance: str = "no"        # no | gs | pgsr | gof (only "no" ported)
+    appearance: str = "no"        # no | gs | pgsr | gof
+    ncc_compact: bool = False     # the block-compacted NCC (GSJAX_NCC_COMPACT)
 
 
 def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamState,
                camera: Camera, gt_image: torch.Tensor, bg: torch.Tensor,
                lrs: dict[str, float], cfg: RasterConfig, loss_cfg: LossConfig,
                near_cam: Camera | None = None, gray_r: torch.Tensor | None = None,
-               gray_n: torch.Tensor | None = None):
+               gray_n: torch.Tensor | None = None,
+               app_embedding: torch.Tensor | None = None,
+               app_net: app_lib.GofNet | None = None):
     """One optimisation step. Returns (params, aux, adam, metrics).
 
     With `loss_cfg.mv_on`, `near_cam` is the neighbour view's camera and
-    `gray_r` / `gray_n` the [H,W] luma frames of the two views.
+    `gray_r` / `gray_n` the [H,W] luma frames of the two views. With an
+    appearance model, `app_embedding` is the view's row of its table and,
+    for gof, `app_net` its CNN; metrics["app_grad"] is d(loss)/d(row) and
+    metrics["app_net_grad"] the net's {layer: {"w", "b"}} gradients (None
+    without the model / the net).
 
     `params` and `adam` are updated in place (the same objects come back);
     `aux` is replaced. When the frame's largest tile list exceeds
@@ -54,10 +66,16 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
     then stops after the forward, changes nothing and returns
     metrics["overflowed"] = True, so the caller can raise the cap and retry
     the same view (gsjax's loss-free overflow retry)."""
-    if loss_cfg.appearance != "no":
-        raise NotImplementedError(
-            f"appearance model {loss_cfg.appearance!r} is not ported to "
-            "gsjax_torch yet (a later slice); use --use_decoupled_appearance 0")
+    kind = loss_cfg.appearance
+    if kind not in app_lib.KINDS:
+        raise ValueError(f"unknown appearance model {kind!r}; one of {app_lib.KINDS}")
+    app_leaves = []
+    if kind != "no":
+        app_embedding = app_embedding.detach().requires_grad_(True)
+        app_leaves = [app_embedding]
+    if kind == "gof":
+        net_tree = app_net.tree()
+        app_leaves += [p for layer in net_tree.values() for p in layer.values()]
 
     tap = torch.zeros(params.capacity, 2, device=params.xyz.device, requires_grad=True)
     scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
@@ -71,7 +89,14 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
         return params, aux, adam, dict(counts, overflowed=True)
 
     img = out["render"]
-    ll1 = losses.l1_loss(img, gt_image)
+    if kind == "gs":
+        ll1 = losses.l1_appearance_gs(img, gt_image, app_embedding)
+    elif kind == "pgsr":
+        ll1 = losses.l1_appearance_pgsr(img, gt_image, app_embedding)
+    elif kind == "gof":
+        ll1 = app_lib.l1_appearance_gof(img, gt_image, app_net, app_embedding)
+    else:
+        ll1 = losses.l1_loss(img, gt_image)
     ssim_val = losses.ssim(img, gt_image)
     rgb_loss = (1 - loss_cfg.lambda_dssim) * ll1 + loss_cfg.lambda_dssim * (1 - ssim_val)
     dn_loss = torch.zeros((), device=img.device)
@@ -80,19 +105,26 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
                                                 camera.fy, camera.cx, camera.cy)
         dn_loss = losses.depth_normal_loss(out["normal"], dnormal, valid)
     ncc_loss = geo_loss = torch.zeros((), device=img.device)
-    mv = dict(mv_queries=0, mv_max_tile_count=0)
+    mv = dict(mv_queries=0, mv_max_tile_count=0, mv_blocks=0)
     if (loss_cfg.reg_on and loss_cfg.mv_on and cfg.require_depth
             and (loss_cfg.lambda_mv_ncc > 0 or loss_cfg.lambda_mv_geo > 0)):
-        ncc_loss, geo_loss, mv["mv_queries"], mv["mv_max_tile_count"] = \
+        ncc_loss, geo_loss, mv["mv_queries"], mv["mv_max_tile_count"], mv["mv_blocks"] = \
             multiview.patchmatch_losses(
                 out["median_depth"], out["normal"], params.xyz, scales,
                 params.rotation, opac, aux.alive, camera, near_cam, gray_r, gray_n,
-                cfg, loss_cfg.pixel_noise_th, loss_cfg.patch_size)
+                cfg, loss_cfg.pixel_noise_th, loss_cfg.patch_size,
+                ncc_compact=loss_cfg.ncc_compact)
     total = (rgb_loss + loss_cfg.lambda_depth_normal * dn_loss
              + loss_cfg.lambda_mv_ncc * ncc_loss + loss_cfg.lambda_mv_geo * geo_loss)
 
     leaves = [getattr(params, k) for k in gm.PARAM_FIELDS]
-    *g_leaves, g2d = torch.autograd.grad(total, leaves + [tap], allow_unused=True)
+    g_all = torch.autograd.grad(total, leaves + [tap] + app_leaves, allow_unused=True)
+    g_leaves, g2d, g_app = g_all[:len(leaves)], g_all[len(leaves)], g_all[len(leaves) + 1:]
+    app_grad = g_app[0] if kind != "no" else None
+    app_net_grad = None
+    if kind == "gof":
+        g_net = iter(g_app[1:])
+        app_net_grad = {layer: {k: next(g_net) for k in p} for layer, p in net_tree.items()}
     # dead-slot math (norms at zero, etc.) can give NaN gradients; those
     # slots carry no loss, so their true gradient is zero
     def mask(g, like):
@@ -115,4 +147,5 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
     # the port samples every tap
     return params, aux, adam, dict(counts, overflowed=False, loss=loss, l1=l1v,
                                    ssim=ssv, dn_loss=dnv, ncc_loss=nccv, geo_loss=geov,
-                                   ncc_win_rej=0, **mv)
+                                   ncc_win_rej=0, app_grad=app_grad,
+                                   app_net_grad=app_net_grad, **mv)

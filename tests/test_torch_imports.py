@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax():
             "gsjax_torch.ops.knn, gsjax_torch.utils.schedules, gsjax_torch.train, "
             "gsjax_torch.train.losses, gsjax_torch.train.step, gsjax_torch.train.loop, "
             "gsjax_torch.ops.sample, gsjax_torch.ops.ncc, gsjax_torch.ops.warp_sample, "
-            "gsjax_torch.train.multiview, gsjax_torch.mesh.extract, gsjax_torch.mesh.tetra, "
+            "gsjax_torch.train.multiview, gsjax_torch.model.appearance, "
+            "gsjax_torch.mesh.extract, gsjax_torch.mesh.tetra, "
             "gsjax_torch.mesh.delaunay, gsjax_torch.mesh.cluster, gsjax_torch.mesh_extract, "
             "gsjax_torch.mesh_extract_tetrahedra; "
             "import sys; assert not any(m == 'jax' or m.startswith(('jax.', 'gsjax.')) "

@@ -19,6 +19,11 @@ the reference view and the same neighbour view, as numpy arrays.
   to a few percent of it), as tests/test_torch_sample.py holds the query
   itself: gsjax's kernel finds the root by 7-step Newton with a 5-sigma
   cull, the twin bisects (read: at most 0.1% of scale).
+- the block-compacted NCC (`ncc_compact`, gsjax's `ncc_block_capacity`;
+  the 64x32 frame has 8 blocks, so a capacity of 16 truncates nothing):
+  losses within rtol 1e-5 of gsjax's and of the port's dense form, the
+  block count equal to gsjax's, and the gradient to the normal within
+  gsjax's block form's as the dense one within gsjax's dense form.
 Every tile list of the neighbour view is at most 128 pairs, one chunk in
 both of gsjax's paths, so gsjax's chunked stop equals the port's.
 """
@@ -74,41 +79,44 @@ def _jcfg(backend):
                    require_depth=True, backend=backend)
 
 
-def _gsjax(inputs, backend, cap, grad=True):
-    """gsjax's (ncc, geo, n_queries) and, with `grad`, its gradients to
-    (median depth, normal, means, scales, rotations, opacities) of
-    ncc + 0.1 geo."""
+def _gsjax(inputs, backend, cap, grad=True, bcap=None):
+    """gsjax's (ncc, geo, n_queries, n_blocks) and, with `grad`, its
+    gradients to (median depth, normal, means, scales, rotations, opacities)
+    of ncc + 0.1 geo; `bcap` is its ncc_block_capacity."""
     g, md, nrm, gr, gn = inputs
     cams = _cams(JCamera)
     alive = jnp.ones((g[0].shape[0],), bool)
 
     def loss(md_, nrm_, ms, sc, qt, op):
-        ncc, geo, _wr, nq, _nb = jpatch(md_, nrm_, ms, sc, qt, op, alive, cams[REF],
-                                        cams[NEAR], jnp.asarray(gr), jnp.asarray(gn),
-                                        _jcfg(backend), query_capacity=cap)
-        return ncc + 0.1 * geo, (ncc, geo, nq)
+        ncc, geo, _wr, nq, nb = jpatch(md_, nrm_, ms, sc, qt, op, alive, cams[REF],
+                                       cams[NEAR], jnp.asarray(gr), jnp.asarray(gn),
+                                       _jcfg(backend), query_capacity=cap,
+                                       ncc_block_capacity=bcap)
+        return ncc + 0.1 * geo, (ncc, geo, nq, nb)
 
     args = tuple(map(jnp.asarray, (md, nrm, *g)))
     if not grad:
-        _, (ncc, geo, nq) = loss(*args)
-        return float(ncc), float(geo), int(nq), None
-    (_, (ncc, geo, nq)), grads = jax.value_and_grad(
+        _, (ncc, geo, nq, nb) = loss(*args)
+        return float(ncc), float(geo), int(nq), None, int(nb)
+    (_, (ncc, geo, nq, nb)), grads = jax.value_and_grad(
         loss, argnums=tuple(range(6)), has_aux=True)(*args)
-    return float(ncc), float(geo), int(nq), [np.asarray(x) for x in grads]
+    return float(ncc), float(geo), int(nq), [np.asarray(x) for x in grads], int(nb)
 
 
-def _port(inputs):
-    """The port's (ncc, geo, n_queries, the neighbour's largest tile list) and
-    its gradients, as `_gsjax`."""
+def _port(inputs, ncc_compact=False):
+    """The port's (ncc, geo, n_queries, the neighbour's largest tile list),
+    its gradients, as `_gsjax`, and its NCC block count."""
     g, md, nrm, gr, gn = inputs
     cams = _cams(TCamera, device="cpu")
     args = [torch.tensor(a, requires_grad=True) for a in (md, nrm, *g)]
-    ncc, geo, nq, mtc = tpatch(*args[:2], *args[2:], torch.ones(g[0].shape[0], dtype=bool),
-                               cams[REF], cams[NEAR], torch.as_tensor(gr),
-                               torch.as_tensor(gn),
-                               TConfig(max_per_tile=256, chunk=128, require_depth=True))
+    ncc, geo, nq, mtc, nb = tpatch(*args[:2], *args[2:], torch.ones(g[0].shape[0], dtype=bool),
+                                   cams[REF], cams[NEAR], torch.as_tensor(gr),
+                                   torch.as_tensor(gn),
+                                   TConfig(max_per_tile=256, chunk=128, require_depth=True),
+                                   ncc_compact=ncc_compact)
     grads = torch.autograd.grad(ncc + 0.1 * geo, args)
-    return float(ncc.detach()), float(geo.detach()), nq, mtc, [x.numpy() for x in grads]
+    return (float(ncc.detach()), float(geo.detach()), nq, mtc, [x.numpy() for x in grads],
+            nb)
 
 
 @pytest.fixture(scope="module")
@@ -121,17 +129,19 @@ def gsjax_runs(inputs):
     """`_gsjax` on these inputs, each run once."""
     runs = {}
 
-    def run(backend, cap, grad=True):
-        if (backend, cap, grad) not in runs:
-            runs[backend, cap, grad] = _gsjax(inputs, backend, cap, grad)
-        return runs[backend, cap, grad]
+    def run(backend, cap, grad=True, bcap=None):
+        key = (backend, cap, grad, bcap)
+        if key not in runs:
+            runs[key] = _gsjax(inputs, backend, cap, grad, bcap)
+        return runs[key]
     return run
 
 
 @pytest.mark.parametrize("cap", [None, 2048], ids=["dense", "compacted"])
 def test_losses_match_gsjax(gsjax_runs, port, cap):
-    ncc, geo, nq, _ = gsjax_runs("ref", cap, grad=cap is not None)
-    t_ncc, t_geo, t_nq, mtc, _ = port
+    ncc, geo, nq, _, _ = gsjax_runs("ref", cap, grad=cap is not None)
+    t_ncc, t_geo, t_nq, mtc, _, t_nb = port
+    assert t_nb == 0, "the dense NCC selects no blocks"
     assert mtc <= 128, "one chunk per tile list"
     assert t_ncc > 0 and t_geo > 0
     np.testing.assert_allclose(t_ncc, ncc, rtol=1e-5)
@@ -158,3 +168,17 @@ def test_grads_through_the_query_match_gsjax_pallas(port, gsjax_runs, arg):
     scale = float(np.abs(terms).sum())
     assert scale > 0
     assert abs(dt - dj) <= 0.02 * scale, (dt, dj, scale)
+
+
+def test_compacted_ncc_matches_gsjax_and_the_dense_form(inputs, gsjax_runs, port):
+    ncc, geo, nq, jg, nb = gsjax_runs("ref", 2048, bcap=16)
+    d_ncc, d_geo, _, _, dg, _ = port
+    t_ncc, t_geo, t_nq, _, tg, t_nb = _port(inputs, ncc_compact=True)
+    assert 0 < t_nb == nb <= 8 and t_nq == nq
+    np.testing.assert_allclose(t_ncc, ncc, rtol=1e-5)
+    np.testing.assert_allclose(t_geo, geo, rtol=1e-5)
+    np.testing.assert_allclose([t_ncc, t_geo], [d_ncc, d_geo], rtol=1e-5)
+    np.testing.assert_allclose(tg[1], jg[1], rtol=2e-4, atol=1e-6)
+    for a, b in zip(tg, dg):
+        scale = max(np.abs(b).max(), 1e-20)
+        np.testing.assert_allclose(a / scale, b / scale, atol=1e-4)

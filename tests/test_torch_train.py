@@ -20,6 +20,12 @@ pixel with alpha >= 0.55 for hundreds of steps): from step 7 every step
 whose view has neighbours adds the PGSR losses, which must be finite and
 non-zero, and its (view, neighbour) sequence must be gsjax's draw rule
 (gsjax/train/loop.py:388-393) replayed on the seeded `random` stream.
+
+A third run starts from the same checkpoint with GSJAX_NCC_COMPACT=1 and
+GOF's appearance model (`--use_decoupled_appearance 2`): every multi-view
+step runs the NCC on compacted 16x16 blocks (at most the frame's 24), the
+embeddings of the drawn views and the CNN move, and its checkpoint's
+`x_app/*` keys load in gsjax's `state_from_arrays` and in the port's.
 """
 
 import json
@@ -33,6 +39,7 @@ import torch
 
 import gsjax_torch.train as ttrain
 from gsjax_torch.data.synth import write_rendered_colmap
+from gsjax_torch.model import appearance as tapp
 from gsjax_torch.model.gaussians import adam_init, params_from_numpy
 from gsjax_torch.model.io import load_checkpoint, load_ply, save_checkpoint
 
@@ -109,9 +116,9 @@ def test_losses_and_densify_match_gsjax(runs):
     assert all(m.get("densify") is None for i, m in enumerate(ports) if i not in (4, 9))
 
 
-@pytest.fixture(scope="module")
-def mv_run(tmp_path_factory):
-    root = tmp_path_factory.mktemp("train_mv")
+def _start(root):
+    """A rendered arc scene under `root` and a checkpoint of its gaussians;
+    returns (scene dir, checkpoint path)."""
     scene = str(root / "scene")
     means, scales, quats, opac, shs = write_rendered_colmap(
         scene, n_images=6, width=96, height=64, device="cpu")
@@ -129,12 +136,38 @@ def mv_run(tmp_path_factory):
     p, a = params_from_numpy(params, aux, "cpu")
     ckpt = str(root / "start.npz")
     save_checkpoint(ckpt, p, a, adam_init(p), 0)
+    return scene, ckpt
+
+
+@pytest.fixture(scope="module")
+def mv_run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_mv")
+    scene, ckpt = _start(root)
     steps = []
     trainer = ttrain.main(["-s", scene, "-m", str(root / "port"), "--iterations", "12",
                            "--device", "cpu", "--start_checkpoint", ckpt, *FLAGS[:8],
                            "--seed", "0"],
                           on_step=lambda t, m: steps.append(m))
     return trainer, steps
+
+
+@pytest.fixture(scope="module")
+def app_run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_app")
+    scene, ckpt = _start(root)
+    out = str(root / "port")
+    steps, tables = [], []
+    mp = pytest.MonkeyPatch()
+    mp.setenv("GSJAX_NCC_COMPACT", "1")
+    try:
+        trainer = ttrain.main(["-s", scene, "-m", out, "--iterations", "12", "--device", "cpu",
+                               "--start_checkpoint", ckpt, "--use_decoupled_appearance", "2",
+                               "--checkpoint_iterations", "12", *FLAGS[:8], "--seed", "0"],
+                              on_step=lambda t, m: (steps.append(m),
+                                                    tables.append(t.app.table.clone())))
+    finally:
+        mp.undo()
+    return trainer, steps, tables, os.path.join(out, "chkpnt12.npz")
 
 
 def test_multiview_steps_train_and_draw_as_gsjax(mv_run):
@@ -155,9 +188,44 @@ def test_multiview_steps_train_and_draw_as_gsjax(mv_run):
     assert len(steps) == 12 and all(np.isfinite(m["loss"]) for m in steps)
 
 
+def test_gof_with_compacted_ncc_trains(app_run):
+    trainer, steps, tables, _ = app_run
+    init = tapp.init_appearance("gof", 6, torch.Generator().manual_seed(0))
+    assert trainer.app.kind == "gof" and len(steps) == 12
+    mv = [m for m in steps if m["near"] is not None]
+    assert len(mv) >= 3
+    for m in steps:
+        assert np.isfinite(m["loss"]) and m["app_grad"] is not None
+        if m["near"] is None:
+            assert m["mv_blocks"] == 0 and m["ncc_loss"] == 0.0
+        else:
+            assert 0 < m["mv_blocks"] <= 24, m["mv_blocks"]
+            assert m["ncc_loss"] > 0 and m["geo_loss"] > 0
+    # the first drawn view's row moved at the first step
+    assert not torch.equal(tables[0][steps[0]["view"]], init.table[steps[0]["view"]])
+    assert trainer.app.net_opt.count == trainer.app.opt.count == 12
+    assert not torch.equal(trainer.app.net.conv3.weight, init.net.conv3.weight)
+
+
+def test_gof_checkpoint_loads_in_both_packages(app_run):
+    from gsjax.model import appearance as japp
+    from tests.test_torch_appearance import _gsjax_template
+
+    trainer, _, _, path = app_run
+    *_, it, extra = load_checkpoint(path, device="cpu")
+    assert it == 12 and "app/net/conv1/w" in extra and "app/net_opt/count" in extra
+    want = tapp.state_to_arrays(trainer.app)
+    assert sorted(extra) == sorted(want)
+    gs = japp.state_to_arrays(japp.state_from_arrays(_gsjax_template("gof", 6), extra))
+    back = tapp.state_to_arrays(tapp.state_from_arrays(
+        tapp.init_appearance("gof", 6, torch.Generator().manual_seed(1)), extra))
+    for k, v in want.items():
+        np.testing.assert_array_equal(gs[k], v, err_msg=k)
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
 def test_unported_options_raise(tmp_path):
-    for extra in (["--ip", "127.0.0.1"], ["--n_devices", "2"], ["--profile_iter", "3"],
-                  ["--use_decoupled_appearance", "1"]):
+    for extra in (["--ip", "127.0.0.1"], ["--n_devices", "2"], ["--profile_iter", "3"]):
         with pytest.raises(NotImplementedError):
             ttrain.main(["-s", str(tmp_path / "none"), "-m", str(tmp_path / "out"),
                          "--device", "cpu", *extra])

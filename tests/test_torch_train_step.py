@@ -17,6 +17,12 @@ mv on (reg on plus the PGSR multi-view losses against a neighbour view
 moved by a small rotation and a shift): gsjax on its Pallas blend and point
 kernel in interpret mode, as reg on; its NCC samples with `_bilinear`.
 
+app gs / pgsr / gof (reg off, each appearance model mapping the render
+before its L1 term): gsjax on its XLA blend, from the same seeded embedding
+row (and, for gof, the port's initial CNN weights carried across as
+arrays); the step's embedding gradient, the net's gradients and one Adam
+step of the net's moments are compared under the reg-off tolerances.
+
 Tolerances: loss metrics, densification statistics and max_radii within
 1e-5; moments within 1e-5 of each field's largest gradient. With reg on,
 what the median depth feeds (the depth-normal loss, and through it the
@@ -36,17 +42,20 @@ query point, and where the model T(t) bends sharply the two searches' roots
 scale; every other element within 5e-3).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gsjax.model import appearance as japp
 from gsjax.model import gaussians as jgm
 from gsjax.ops.raster import Camera as JCamera
 from gsjax.ops.raster import RasterConfig as JConfig
 from gsjax.ops.raster import render as jrender
 from gsjax.train.step import LossConfig as JLoss
 from gsjax.train.step import train_step as jstep
+from gsjax_torch.model import appearance as tapp
 from gsjax_torch.model import gaussians as tgm
 from gsjax_torch.ops.raster import RasterConfig as TConfig
 from gsjax_torch.ops.raster.camera import Camera as TCamera
@@ -100,8 +109,27 @@ def _state():
     return params, aux, gt, _luma(gt), _luma(gt_near)
 
 
+def _appearance(kind):
+    """A seeded embedding row of `kind` and, for gof, the port's CNN with its
+    weights as gsjax's {layer: {"w", "b"}} tree: (row, port net, gsjax net)."""
+    rng = np.random.default_rng(9)
+    if kind == "gs":
+        row = np.eye(3, 4) + rng.normal(0, 0.05, (3, 4))
+    elif kind == "pgsr":
+        row = rng.normal(0, 0.1, 2)
+    else:
+        row = rng.normal(0, 0.5, 64)
+    if kind != "gof":
+        return row.astype(np.float32), None, None
+    net = tapp.GofNet(torch.Generator().manual_seed(3))
+    jnet = {k: {kk: jnp.asarray(vv.detach().numpy()) for kk, vv in p.items()}
+            for k, p in net.tree().items()}
+    return row.astype(np.float32), net, jnet
+
+
 def _step(mode):
-    reg_on, mv_on = mode != "reg_off", mode == "mv_on"
+    reg_on, mv_on = mode in ("reg_on", "mv_on"), mode == "mv_on"
+    kind = mode[4:] if mode.startswith("app_") else "no"
     params, aux, gt, gray_r, gray_n = _state()
     bg = np.array([0.1, 0.2, 0.3], np.float32)
     kw = dict(tile=32, max_per_tile=256, sh_degree=1, require_depth=reg_on)
@@ -115,20 +143,25 @@ def _step(mode):
                    gray_r=jnp.asarray(gray_r), gray_n=jnp.asarray(gray_n))
         tmv = dict(near_cam=TCamera.create(*_near(), 0.9, 0.7, W, H, device="cpu"),
                    gray_r=torch.as_tensor(gray_r), gray_n=torch.as_tensor(gray_n))
+    if kind != "no":
+        row, net, jnet = _appearance(kind)
+        jmv = dict(app_embedding=jnp.asarray(row), app_net=jnet)
+        tmv = dict(app_embedding=torch.as_tensor(row), app_net=net)
     jp2, ja2, jad2, jm = jstep(jp, ja, jgm.adam_init(jp), look_at_camera(W, H),
                                jnp.asarray(gt), jnp.asarray(bg), LRS, jcfg,
-                               JLoss(reg_on=reg_on, mv_on=mv_on), **jmv)
+                               JLoss(reg_on=reg_on, mv_on=mv_on, appearance=kind), **jmv)
     tp, ta = tgm.params_from_numpy(params, aux, "cpu")
     tcam = TCamera.create(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
                           0.9, 0.7, W, H, device="cpu")
     tad = tgm.adam_init(tp)
     tp2, ta2, tad2, tm = tstep(tp, ta, tad, tcam, torch.as_tensor(gt), torch.as_tensor(bg),
                                LRS, TConfig(chunk=128, backend="torch", **kw),
-                               TLoss(reg_on=reg_on, mv_on=mv_on), **tmv)
+                               TLoss(reg_on=reg_on, mv_on=mv_on, appearance=kind), **tmv)
     return mode, params, (jp2, ja2, jad2, jm), (tp2, ta2, tad2, tm)
 
 
-@pytest.fixture(scope="module", params=["reg_off", "reg_on", "mv_on"])
+@pytest.fixture(scope="module",
+                params=["reg_off", "reg_on", "mv_on", "app_gs", "app_pgsr", "app_gof"])
 def stepped(request):
     return _step(request.param)
 
@@ -138,7 +171,7 @@ GEOMETRY = ("xyz", "scaling", "rotation", "opacity")
 
 def test_step_metrics_and_stats_match(stepped):
     mode, _, (_, ja2, _, jm), (_, ta2, _, tm) = stepped
-    reg_on = mode != "reg_off"
+    reg_on = mode in ("reg_on", "mv_on")
     assert not tm["overflowed"]
     for k in ("loss", "l1", "ssim", "dn_loss", "ncc_loss", "geo_loss"):
         loose = k in ("dn_loss", "ncc_loss", "geo_loss") or (k == "loss" and mode == "mv_on")
@@ -161,7 +194,7 @@ def test_step_metrics_and_stats_match(stepped):
 
 def test_step_moments_and_params_match(stepped):
     mode, _, (jp2, _, jad2, _), (tp2, _, tad2, _) = stepped
-    reg_on = mode != "reg_off"
+    reg_on = mode in ("reg_on", "mv_on")
     floor = 2e-2 if reg_on else 1e-3
     assert tad2.count == int(jad2.count) == 1
     for k in tgm.PARAM_FIELDS:
@@ -182,12 +215,36 @@ def test_step_moments_and_params_match(stepped):
     assert np.isfinite(tad2.mu["xyz"].numpy()).all()
 
 
-@pytest.mark.parametrize("loss_cfg", [TLoss(appearance="gs")], ids=["appearance"])
-def test_unported_losses_raise(loss_cfg):
-    params, aux, gt, _, _ = _state()
-    tp, ta = tgm.params_from_numpy(params, aux, "cpu")
-    tcam = TCamera.create(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
-                          0.9, 0.7, W, H, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstep(tp, ta, tgm.adam_init(tp), tcam, torch.as_tensor(gt), torch.zeros(3), LRS,
-              TConfig(chunk=128, backend="torch"), loss_cfg)
+def _scaled(got, want, tol, what):
+    want = np.asarray(want)
+    scale = max(np.abs(want).max(), 1e-20)
+    np.testing.assert_allclose(got.detach().numpy() / scale, want / scale, atol=tol,
+                               err_msg=what)
+
+
+def test_step_appearance_grads_match(stepped):
+    """The embedding row's gradient (and the GOF net's, and one Adam step of
+    the net's moments from zero) against gsjax's."""
+    mode, _, (_, _, _, jm), (_, _, _, tm) = stepped
+    if not mode.startswith("app_"):
+        assert tm["app_grad"] is None and tm["app_net_grad"] is None
+        return
+    assert float(tm["app_grad"].abs().max()) > 0
+    _scaled(tm["app_grad"], jm["app_grad"], 1e-5, "app_grad")
+    if mode != "app_gof":
+        assert tm["app_net_grad"] is None
+        return
+    jg = jm["app_net_grad"]
+    tg = tm["app_net_grad"]
+    for k in jg:
+        for kk in jg[k]:
+            _scaled(tg[k][kk], jg[k][kk], 1e-5, f"{k}/{kk}")
+    zeros = lambda tree, f: {k: {kk: f(v) for kk, v in p.items()} for k, p in tree.items()}
+    _, jopt = jax.jit(lambda g, st: japp.adam_tree(g, g, st, 1e-3))(
+        jg, japp.TableAdam(zeros(jg, jnp.zeros_like), zeros(jg, jnp.zeros_like), jnp.int32(0)))
+    _, topt = tapp.adam_tree(tg, tg, tapp.TableAdam(zeros(tg, torch.zeros_like),
+                                                    zeros(tg, torch.zeros_like), 0), 1e-3)
+    for k in jg:
+        for kk in jg[k]:
+            _scaled(topt.mu[k][kk], jopt.mu[k][kk], 1e-5, f"mu {k}/{kk}")
+            _scaled(topt.nu[k][kk], jopt.nu[k][kk], 1e-5, f"nu {k}/{kk}")
