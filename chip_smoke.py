@@ -92,9 +92,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
               views x (1 + 10 binary-search steps) x chunks, B1's the views of
               the TSDF route, and both `recon_post.ply` lie on the unit
               sphere; the stage split and peak memory of each route, and B4's
-              summed device time (CUDA events around each call).
+              summed device time (CUDA events around each call);
+  evaluate    gsjax's evaluation path through the port's CLIs on an 800x800
+              NeRF-synthetic scene of the blobs foreground (24 train and 4
+              test views, `write_rendered_blender`): the train CLI (`--eval
+              -w`, 40 steps from the reader's 100k random points, B2 on every
+              step, B3 / B5 / B6 on the multi-view ones, the loss on fixed
+              views lower after than before); the render CLI on
+              the ground-truth model with a 16-frame flythrough, depth and
+              `--video` (or the error naming cv2 where it does not import),
+              B1 once per view; the metric CLI (test PSNR, LPIPS null with
+              its status) and the port's LPIPS with random weights on the
+              card against the CPU; the TSDF mesh CLI (B1 per train view) and
+              the mesh's distance to the two spheres; the DTU CLI on
+              synthetic calibration, ObsMask, Plane and STL files under a
+              known similarity (the scale it recovers, `overall`, the
+              downsample's size and seconds); the TnT CLI's F1 on synthetic
+              files (without matplotlib it writes results.json and no
+              figure); the seconds of each stage on the host clock.
 Then the `kernels` line (seven entries: B6 appears twice, as `warp_sample`
-on the dense NCC and as `warp_sample_blocks` on the compacted one), the
+on the dense NCC and as `warp_sample_blocks` on the compacted one; each with
+its launches by path: render, train, train_compact, mesh, evaluate), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
@@ -261,6 +279,51 @@ MESH_STEPS = 10           # binary-search steps of the tetra route
 # distance exceeds the Newton exit's absolute tolerance (median.cuh).
 FAR = 60.0
 FAR_ITERS = 0.5           # |mean evaluations far - near| (read 0.38; CPU emulation 0.29)
+# The `evaluate` phase: an 800x800 NeRF-synthetic scene (NeRF-synthetic's
+# frame size; its 100 train and 200 test views cut to EVAL_TRAIN and
+# EVAL_TEST, interleaved) rendered from the foreground of
+# blobs_gaussians(EVAL_GAUSSIANS) (45k gaussians with |mean| <= 2.5) on
+# gsjax's golden blobs ring, at fovx EVAL_FOVX. The train CLI runs EVAL_STEPS
+# steps from the reader's own 100k random points, multi-view from step 21,
+# and no densification: with -w gsjax resets every opacity to at most 0.01
+# at densify_from_iter, and its prune at 0.05 removes every gaussian at the
+# next densification unless ~35 steps lie between (read on the card: a
+# 40-step run densifying at 10 and 20 launched B2 on 20 steps and B3 / B5
+# never); the `train` phase densifies. The render CLI adds an
+# EVAL_TRAJ-frame flythrough. Readings below: H100, 60k blobs gaussians.
+EVAL_SIZE = 800
+EVAL_TRAIN, EVAL_TEST, EVAL_TRAJ = 24, 4, 16
+EVAL_GAUSSIANS = 60_000
+EVAL_FOVX = 0.8
+EVAL_STEPS = 40
+EVAL_INIT_POINTS = 100_000      # the reader's default random initialisation
+EVAL_RING = dict(radius=4.2, height_amp=1.1, target=(0.7, 0.1, 0.25))
+# The ground-truth model renders its own test views back: the test PSNR is
+# above EVAL_PSNR (read 56.26 dB; the 8-bit PNGs and the alpha composite
+# bound it).
+EVAL_PSNR = 50.0
+# The port's LPIPS on one 800x800 pair (two test views) with seeded random
+# VGG16 weights, on the card against the CPU, TF32 off: within EVAL_LPIPS_RTOL
+# (read: equal).
+EVAL_LPIPS_RTOL = 1e-4
+# The TSDF mesh of the ground-truth model (voxel EVAL_VOXEL, the two largest
+# clusters kept): the median distance of recon_post.ply's vertices to the two
+# foreground spheres below EVAL_MESH_DIST (read 0.0047, 0.0047 at voxel
+# 0.005: the tangent discs' sag, not the grid, sets it; 0.0091 from 20k
+# gaussians).
+EVAL_VOXEL = 0.01
+EVAL_MESH_DIST = 0.008
+# Synthetic DTU files: the blobs surface (EVAL_SAMPLES samples) under a
+# similarity of scale EVAL_DTU_SCALE, chosen so the protocol's 0.2 mm
+# density keeps ~1e5 points of the mesh (read: 100,493 of 891,245); the
+# CLI's alignment recovers the scale within EVAL_SCALE_RTOL (read 2.2e-8).
+EVAL_SAMPLES = 200_000
+EVAL_DTU_SCALE = 20.0
+EVAL_SCALE_RTOL = 1e-4
+# Synthetic TnT files of the same samples (tau 0.01, the default of a scene
+# not in SCENES_TAU): F1 at tau above EVAL_F1 (percent; read 94.5, precision
+# 90.6, recall 98.9).
+EVAL_F1 = 85.0
 
 
 def emit(obj):
@@ -639,6 +702,29 @@ def read_launches():
     return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
+def views_loss(trainer, mapped=False):
+    """The photometric loss (0.8 L1 + 0.2 D-SSIM) of the trainer's model,
+    averaged over its training views. With `mapped` and GOF's appearance
+    model, L1 reads the render through each view's appearance mapping."""
+    import torch
+
+    from gsjax_torch.model import appearance as app_lib
+    from gsjax_torch.train import losses
+
+    vals = []
+    for v in trainer.scene.train_views:
+        img = trainer.render_view(v, require_depth=False)["render"]
+        gt = trainer.gt_for(v)
+        with torch.no_grad():
+            if mapped and trainer.app.kind == "gof":
+                l1 = app_lib.l1_appearance_gof(img, gt, trainer.app.net,
+                                               trainer.app.table[v.uid])
+            else:
+                l1 = losses.l1_loss(img, gt)
+            vals.append(float(0.8 * l1 + 0.2 * (1 - losses.ssim(img, gt))))
+    return float(np.mean(vals))
+
+
 def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
                 options=False):
     """The training CLI at full width, with gsjax's default multi-view
@@ -661,25 +747,10 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
     from gsjax_torch.data.synth import write_rendered_colmap
     from gsjax_torch.model import appearance as app_lib
     from gsjax_torch.model.io import load_checkpoint, load_ply
-    from gsjax_torch.train import losses
     from gsjax_torch.train.loop import Trainer
 
     phase = "train_options" if options else "train"
     kind = "gof" if options else "no"
-
-    def views_loss(trainer, mapped):
-        vals = []
-        for v in trainer.scene.train_views:
-            img = trainer.render_view(v, require_depth=False)["render"]
-            gt = trainer.gt_for(v)
-            with torch.no_grad():
-                if mapped and kind == "gof":
-                    l1 = app_lib.l1_appearance_gof(img, gt, trainer.app.net,
-                                                   trainer.app.table[v.uid])
-                else:
-                    l1 = losses.l1_loss(img, gt)
-                vals.append(float(0.8 * l1 + 0.2 * (1 - losses.ssim(img, gt))))
-        return float(np.mean(vals))
 
     shutil.rmtree(WORK, ignore_errors=True)
     scene_dir = os.path.join(WORK, "train_scene")
@@ -1844,6 +1915,264 @@ def phase_mesh(dev, n_views=8, width=1920, height=1080, n=20_000, voxel=0.01):
     return total
 
 
+def eval_pose(i, n):
+    """gsjax's golden blobs ring (scripts/golden_quality.py)."""
+    from gsjax_torch.data.synth import ring_pose
+
+    return ring_pose(i, n, **EVAL_RING)
+
+
+def blobs_foreground(n):
+    """The two foreground spheres of blobs_gaussians(n): the gaussians with
+    |mean| <= 2.5, so the Blender scene's background is transparent."""
+    from gsjax_torch.data.synth import blobs_gaussians
+
+    g = blobs_gaussians(n)
+    keep = np.linalg.norm(g[0], axis=1) <= 2.5
+    return tuple(a[keep] for a in g)
+
+
+def write_eval_scene(scene_dir, model_dir, g, dev):
+    """The evaluate phase's NeRF-synthetic scene, rendered on the card (B1),
+    and the ground-truth model of it as a PLY with its cfg_args."""
+    from gsjax_torch.config import dump_cfg_args
+    from gsjax_torch.data.synth import write_rendered_blender
+    from gsjax_torch.model.io import save_ply
+
+    write_rendered_blender(scene_dir, n_train=EVAL_TRAIN, n_test=EVAL_TEST, width=EVAL_SIZE,
+                           height=EVAL_SIZE, fovx=EVAL_FOVX, gaussians=g, pose_fn=eval_pose,
+                           max_per_tile=1 << 12, device=dev)
+    save_ply(os.path.join(model_dir, "point_cloud", "iteration_30000", "point_cloud.ply"),
+             *bench_params(g, dev))
+    dump_cfg_args(model_dir, Namespace(
+        sh_degree=3, sg_degree=0, source_path=scene_dir, model_path=model_dir,
+        images="images", masks="", resolution=-1, white_background=True,
+        eval=True, kernel_size=0.0))
+
+
+def train_c2ws(scene_dir):
+    """The Blender scene's training cameras (cam-to-world, Blender axes)."""
+    with open(os.path.join(scene_dir, "transforms_train.json")) as f:
+        return np.stack([np.asarray(fr["transform_matrix"]) for fr in json.load(f)["frames"]])
+
+
+def random_lpips_weights(seed=0):
+    """Seeded He-scaled VGG16 convs and positive LPIPS heads in the npz
+    layout `gsjax_torch.eval.lpips` reads."""
+    from gsjax_torch.eval.lpips import _TV_CONV_IDX, _VGG_CFG, convert_state_dicts
+
+    rng = np.random.default_rng(seed)
+    widths = [c for c in _VGG_CFG if c != "M"]
+    sd = {}
+    for idx, cin, cout in zip(_TV_CONV_IDX, [3] + widths[:-1], widths):
+        sd[f"features.{idx}.weight"] = (rng.normal(0, 1, (cout, cin, 3, 3))
+                                        * np.sqrt(2 / (9 * cin))).astype(np.float32)
+        sd[f"features.{idx}.bias"] = rng.normal(0, 0.01, cout).astype(np.float32)
+    heads = [widths[i] for i in (1, 3, 6, 9, 12)]
+    return convert_state_dicts(sd, [rng.uniform(0, 0.1, (1, c, 1, 1)).astype(np.float32)
+                                    for c in heads])
+
+
+def phase_evaluate(dev):
+    """gsjax's evaluation path through the port's CLIs on a Blender scene:
+    train, render (with a flythrough), metric, TSDF mesh, the DTU and TnT
+    evaluators; returns {kernel: launches} over the path's stages."""
+    import torch
+
+    from gsjax_torch import eval_tnt as tnt_cli
+    from gsjax_torch import evaluate_dtu_mesh as dtu_cli
+    from gsjax_torch import mesh_extract as tsdf_cli
+    from gsjax_torch import metric as metric_cli
+    from gsjax_torch import render as render_cli
+    from gsjax_torch import train as train_cli
+    from gsjax_torch.data.readers import load_scene
+    from gsjax_torch.data.synth import (blobs_surface_distance, blobs_surface_samples,
+                                        write_synthetic_dtu, write_synthetic_tnt,
+                                        write_trajectory_log)
+    from gsjax_torch.eval import dtu as dtu_lib
+    from gsjax_torch.eval import lpips as lpips_lib
+    from gsjax_torch.metric import read_dir
+    from gsjax_torch.train.loop import Trainer
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    scene_dir = os.path.join(WORK, "blender")
+    gt_dir = os.path.join(WORK, "gt_model")
+    train_dir = os.path.join(WORK, "train_model")
+    g = blobs_foreground(EVAL_GAUSSIANS)
+    t0 = time.perf_counter()
+    write_eval_scene(scene_dir, gt_dir, g, dev)
+    seconds = {"setup": time.perf_counter() - t0}
+    launches, total = {}, {}
+    checks = {}
+
+    @contextlib.contextmanager
+    def stage(name):
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = read_launches()
+        for k, v in launches[name].items():
+            total[k] = total.get(k, 0) + v
+
+    # 1. train from the reader's random points, multi-view from step 21. The
+    # step losses move with the view drawn and the terms added at step 21, so
+    # learning is read on fixed views, as in the train phase: the photometric
+    # loss over the training views at initialisation and after the last step.
+    # The first read of the scene writes points3d.ply; the CLI reads it back
+    # (8-bit colours, ROADMAP queue C), and so does the model read here.
+    load_scene(scene_dir, eval_split=True, white_background=True, device=dev)
+    initial = Trainer.create(load_scene(scene_dir, eval_split=True, white_background=True,
+                                        device=dev), None, train_dir, dev,
+                             white_background=True)
+    loss_before = views_loss(initial)
+    del initial
+    log = []
+    with stage("train"):
+        trainer = train_cli.main(
+            ["-s", scene_dir, "-m", train_dir, "--eval", "-w",
+             "--iterations", str(EVAL_STEPS), "--densify_from_iter", "10",
+             "--densification_interval", "10", "--densify_until_iter", "10",
+             "--regularization_from_iter", "21", "--save_iterations", str(EVAL_STEPS),
+             "--device", str(dev)],
+            on_step=lambda t, m: log.append((m["loss"], m["near"] is not None,
+                                             int(t.aux.alive.sum()))))
+    mv_steps = sum(mv for _, mv, _ in log)
+    checks["train"] = {
+        "steps": len(log), "mv_steps": mv_steps, "init_points": int(len(trainer.scene.points)),
+        "views": [len(trainer.scene.train_views), len(trainer.scene.test_views)],
+        "loss_first": log[0][0], "loss_last": log[-1][0], "alive_last": log[-1][2],
+        "views_loss_before": loss_before, "views_loss_after": views_loss(trainer)}
+    del trainer
+
+    # 2. render the ground-truth model: train, test and a flythrough
+    try:
+        import cv2  # noqa: F401
+        video = True
+    except ImportError:
+        video = False
+    argv = ["-m", gt_dir, "--eval", "-w", "--traj_frames", str(EVAL_TRAJ), "--save_depth",
+            "--device", str(dev)]
+    with stage("render"):
+        render_cli.main(argv + (["--video"] if video else []))
+    out = os.path.join(gt_dir, "{}", "ours_30000", "{}")
+    frames = {s: {k: len(os.listdir(out.format(s, k))) for k in ("renders", "gt", "depth")}
+              for s in ("train", "test", "traj")}
+    videos = sorted(f for f in os.listdir(gt_dir) if f.endswith(".mp4"))
+    if not video:
+        try:
+            render_cli.main(argv + ["--video", "--skip_train", "--skip_test"])
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        videos = raised
+    checks["render"] = {"frames": frames, "cv2": video, "videos": videos}
+
+    # 3. metrics of the ground-truth model's test renders; LPIPS on the card
+    # against the CPU on two test views with random weights
+    with stage("metric"):
+        metric = metric_cli.main(["-m", gt_dir, "--device", str(dev)])[gt_dir]["ours_30000"]
+    _, gts = read_dir(out.format("test", "gt"))
+    weights = random_lpips_weights()
+    t = time.perf_counter()
+    lp_card = lpips_lib.lpips(torch.as_tensor(gts[0], device=dev),
+                              torch.as_tensor(gts[1], device=dev), weights)
+    lp_card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    lp_cpu = lpips_lib.lpips(gts[0], gts[1], weights)
+    lp_cpu_s = time.perf_counter() - t
+    checks["metric"] = {**metric, "lpips_random_card": lp_card, "lpips_random_cpu": lp_cpu,
+                        "lpips_rel_err": abs(lp_card - lp_cpu) / abs(lp_cpu),
+                        "lpips_card_s": lp_card_s, "lpips_cpu_s": lp_cpu_s}
+
+    # 4. the TSDF mesh of the ground-truth model
+    with stage("mesh"):
+        tsdf_cli.main(["-m", gt_dir, "--voxel_size", str(EVAL_VOXEL), "--num_cluster", "2",
+                       "--device", str(dev)])
+    verts, faces = _read_mesh(os.path.join(gt_dir, "recon_post.ply"))
+    dist = blobs_surface_distance(verts)
+    checks["mesh"] = {"vertices": int(len(verts)), "faces": int(len(faces)),
+                      "dist_median": float(np.median(dist)),
+                      "dist_p90": float(np.quantile(dist, 0.9))}
+
+    # 5. DTU: the surface under a known similarity; the CLI aligns the train
+    # cameras to the first calibration centres and runs the chamfer protocol
+    samples = blobs_surface_samples(EVAL_SAMPLES)
+    rng = np.random.default_rng(0)
+    rot, _ = np.linalg.qr(rng.normal(0, 1, (3, 3)))
+    rot *= np.sign(np.linalg.det(rot))
+    c2ws = train_c2ws(scene_dir)
+    dtu_dir = os.path.join(WORK, "dtu")
+    t = time.perf_counter()
+    write_synthetic_dtu(dtu_dir, 24, c2ws[:, :3, 3], samples, EVAL_DTU_SCALE, rot,
+                        rng.normal(0, 100, 3))
+    seconds["dtu_files"] = time.perf_counter() - t
+    with stage("dtu"):
+        res = dtu_cli.main(["-s", scene_dir, "-m", gt_dir, "--DTU", dtu_dir, "--scan_id", "24",
+                            "--device", str(dev)])
+    # the protocol's greedy downsample alone, on the CLI's aligned mesh
+    pts = dtu_lib.sample_mesh_points(*_read_mesh(os.path.join(gt_dir, "recon_aligned.ply")))
+    t = time.perf_counter()
+    kept = len(dtu_lib.radius_downsample(pts))
+    down = {"in": len(pts), "out": kept, "seconds": time.perf_counter() - t}
+    checks["dtu"] = {**res, "scale_rel_err": abs(res["scale"] / EVAL_DTU_SCALE - 1),
+                     "downsample": down}
+
+    # 6. TnT: the same samples, an axis-aligned crop, identity _trans.txt and
+    # the train cameras as both trajectories
+    tnt_dir = os.path.join(WORK, "tnt", "blobs")
+    write_synthetic_tnt(tnt_dir, "blobs", samples, c2ws, lo=(-1.3, -1.3, -1.3),
+                        hi=(2.3, 1.3, 1.3))
+    traj = os.path.join(WORK, "tnt", "recon.log")
+    write_trajectory_log(traj, c2ws)
+    tnt_out = os.path.join(WORK, "tnt", "out")
+    with stage("tnt"):
+        tnt = tnt_cli.main(["--dataset-dir", tnt_dir, "--traj-path", traj, "--ply-path",
+                            os.path.join(gt_dir, "recon_post.ply"), "--out-dir", tnt_out])
+    with open(os.path.join(tnt_out, "results.json")) as f:
+        tnt_json = json.load(f)
+    checks["tnt"] = {**tnt, "files": sorted(os.listdir(tnt_out))}
+
+    emit({"phase": "evaluate", "size": EVAL_SIZE, "views": [EVAL_TRAIN, EVAL_TEST],
+          "traj_frames": EVAL_TRAJ, "gaussians": int(len(g[0])), "seconds": seconds,
+          "launches": launches, **checks})
+    n_views = EVAL_TRAIN + EVAL_TEST + EVAL_TRAJ
+    tr, rd, ms = launches["train"], launches["render"], launches["mesh"]
+    check(len(log) == EVAL_STEPS and all(np.isfinite(x) for x, _, _ in log),
+          f"train ran {len(log)} steps with finite losses")
+    check(checks["train"]["views_loss_after"] < loss_before,
+          f"loss did not fall: {loss_before} -> {checks['train']['views_loss_after']}")
+    check(checks["train"]["init_points"] == EVAL_INIT_POINTS and checks["train"]["views"] == [
+        EVAL_TRAIN, EVAL_TEST], f"Blender scene read as {checks['train']}")
+    check(tr["blend_bwd"] == EVAL_STEPS, f"blend_bwd launched {tr['blend_bwd']} times")
+    check(mv_steps >= 5 and tr["sample_fwd"] == tr["sample_bwd"] == tr["warp_sample"]
+          == mv_steps, f"multi-view launches {tr} for {mv_steps} steps")
+    check(rd["blend_fwd"] == n_views and not any(v for k, v in rd.items() if k != "blend_fwd"),
+          f"render launches {rd} for {n_views} views")
+    check(frames == {"train": dict.fromkeys(("renders", "gt", "depth"), EVAL_TRAIN),
+                     "test": dict.fromkeys(("renders", "gt", "depth"), EVAL_TEST),
+                     "traj": dict.fromkeys(("renders", "gt", "depth"), EVAL_TRAJ)},
+          f"frames {frames}")
+    check(videos == [f"traj_30000_{k}.mp4" for k in ("depth", "gt", "renders")] if video
+          else bool(videos and "cv2" in videos), f"--video: {videos}")
+    check(metric["PSNR"] > EVAL_PSNR, f"test PSNR {metric['PSNR']}")
+    check(metric["LPIPS"] is None and metric["LPIPS_status"] == "weights unavailable",
+          f"LPIPS {metric['LPIPS']} ({metric['LPIPS_status']})")
+    check(checks["metric"]["lpips_rel_err"] < EVAL_LPIPS_RTOL,
+          f"LPIPS card {lp_card} against CPU {lp_cpu}")
+    check(not any(launches["metric"].values()), f"metric launched {launches['metric']}")
+    check(ms["blend_fwd"] == EVAL_TRAIN, f"mesh launches {ms}")
+    check(checks["mesh"]["dist_median"] < EVAL_MESH_DIST,
+          f"mesh off the spheres: median {checks['mesh']['dist_median']}")
+    check(checks["dtu"]["scale_rel_err"] < EVAL_SCALE_RTOL and np.isfinite(res["overall"]),
+          f"DTU alignment scale {res['scale']}, overall {res['overall']}")
+    check(tnt["f1"] > EVAL_F1 and tnt_json == tnt, f"TnT F1 {tnt['f1']} at tau {tnt['tau']}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    return total
+
+
 def profile_step(step):
     """torch.profiler over one step: the device's busy time (the union of its
     kernels' intervals), the step's span on the host clock, the idle share,
@@ -1924,12 +2253,14 @@ def main():
     serve_launches = phase_slice(dev)
     train_launches = phase_train(dev)
     compact_launches = phase_train(dev, options=True)
+    eval_launches = phase_evaluate(dev)
     kernel_ms, bound = phase_timing(dev, twin_ms)
     b2_ms, b2_bound = phase_timing_train(dev)
 
     def by_path(name, render=0):
         return {"render": render, "train": train_launches[name],
-                "train_compact": compact_launches[name], "mesh": mesh_launches[name]}
+                "train_compact": compact_launches[name], "mesh": mesh_launches[name],
+                "evaluate": eval_launches[name]}
 
     def entry(name, replaces, max_err, ms, plain_ms, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"gsjax_torch/csrc/{name}.cu",

@@ -1,4 +1,5 @@
-"""Scene readers (port of `gsjax/data/readers.py`: `read_colmap_scene`,
+"""Scene readers: COLMAP and Blender (transforms_train.json) datasets (port
+of `gsjax/data/readers.py`: `read_colmap_scene`, `read_blender_scene`,
 `load_scene`, and the numpy-only `camera_to_json`, `write_scene_artifacts`
 and `build_nearest_view_graph`, copied).
 
@@ -20,7 +21,7 @@ import torch
 from gsjax_torch import resolve_device
 from gsjax_torch.core.transforms import focal2fov, fov2focal
 from gsjax_torch.data import colmap
-from gsjax_torch.data.ply import write_pointcloud
+from gsjax_torch.data.ply import read_pointcloud, write_pointcloud
 from gsjax_torch.ops.raster.camera import Camera
 
 
@@ -162,17 +163,74 @@ def read_colmap_scene(path, images_dir="images", masks_dir=None, eval_split=Fals
                      radius=_nerfpp_norm(train), ply_path=ply_path)
 
 
+def read_blender_scene(path, white_background=False, eval_split=True,
+                       resolution=-1, extension=".png",
+                       device: str | torch.device | None = None) -> SceneInfo:
+    """transforms_{train,test}.json reader (dataset_readers.py:257-334)."""
+    dev = resolve_device(device)
+
+    def read_split(fname):
+        views = []
+        with open(os.path.join(path, fname)) as f:
+            meta = json.load(f)
+        fovx = meta["camera_angle_x"]
+        for idx, frame in enumerate(meta["frames"]):
+            c2w = np.array(frame["transform_matrix"])
+            c2w[:3, 1:3] *= -1          # blender->colmap axes
+            w2c = np.linalg.inv(c2w)
+            R = w2c[:3, :3].T
+            T = w2c[:3, 3]
+            img_path = os.path.join(path, frame["file_path"] + extension)
+            from PIL import Image
+            with Image.open(img_path) as im:
+                w0, h0 = im.size
+            w, h = _resolve_resolution(w0, h0, resolution)
+            image, alpha = _load_image(img_path, (w, h))
+            if alpha is not None:
+                bgc = 1.0 if white_background else 0.0
+                image = image * alpha[..., None] + bgc * (1 - alpha[..., None])
+            fovy = focal2fov(fov2focal(fovx, w), h)
+            views.append(SceneView(
+                uid=idx, image_name=os.path.basename(frame["file_path"]),
+                R=R.astype(np.float32), T=T.astype(np.float32),
+                fovx=float(fovx), fovy=float(fovy), image=image,
+                mask=None, width=w, height=h, device=dev))
+        return views
+
+    train = read_split("transforms_train.json")
+    test = read_split("transforms_test.json") if (
+        eval_split and os.path.exists(os.path.join(path, "transforms_test.json"))) else []
+
+    ply_path = os.path.join(path, "points3d.ply")
+    if os.path.exists(ply_path):
+        pts, colors, _ = read_pointcloud(ply_path)
+    else:
+        # random init inside the synthetic bounds (dataset_readers.py:300-310)
+        rng = np.random.default_rng(0)
+        n = int(os.environ.get("GSJAX_BLENDER_INIT_POINTS", 100_000))
+        pts = (rng.random((n, 3)).astype(np.float32) * 2.6 - 1.3)
+        colors = rng.random((n, 3)).astype(np.float32)
+        try:
+            write_pointcloud(ply_path, pts, (colors * 255).astype(np.uint8))
+        except OSError:
+            pass
+    return SceneInfo(points=pts, colors=colors, train_views=train,
+                     test_views=test, radius=_nerfpp_norm(train),
+                     ply_path=ply_path)
+
+
 def load_scene(source_path, images="images", masks=None, eval_split=False,
                resolution=-1, white_background=False,
                device: str | torch.device | None = None) -> SceneInfo:
-    """Detect the dataset type (scene/__init__.py:50-54). COLMAP scenes only
-    in the port so far; a Blender `transforms_train.json` scene raises."""
+    """Detect the dataset type (scene/__init__.py:50-54). A Blender scene
+    always loads its test split, whatever `eval_split` says, as gsjax's
+    does (ROADMAP queue C)."""
     if os.path.exists(os.path.join(source_path, "sparse")):
         return read_colmap_scene(source_path, images, masks, eval_split,
                                  resolution, device=device)
     if os.path.exists(os.path.join(source_path, "transforms_train.json")):
-        raise NotImplementedError(
-            "Blender scenes are not read by gsjax_torch yet; use gsjax")
+        return read_blender_scene(source_path, white_background, True,
+                                  resolution, device=device)
     raise ValueError(f"no COLMAP sparse/ or transforms_train.json under {source_path}")
 
 

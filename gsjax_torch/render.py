@@ -1,10 +1,12 @@
-"""NVS rendering CLI: render train/test splits to PNG trees.
+"""NVS rendering CLI: render train/test splits, and optionally an ellipse
+flythrough, to PNG trees.
 
 Port of the repository's `render.py` (the reference `render.py:24-65` output
-layout, <model>/{train,test}/ours_<iter>/{renders,gt,depth}/#####.png) on one
-device: cuda unless `--device cpu` is given.
+layout, <model>/{train,test,traj}/ours_<iter>/{renders,gt,depth}/#####.png)
+on one device: cuda unless `--device cpu` is given.
 
-    python -m gsjax_torch.render -m <model> [-s <scene>] [--device cpu]
+    python -m gsjax_torch.render -m <model> [-s <scene>] [--traj_frames N
+        [--video]] [--save_depth] [--device cpu]
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
+from gsjax_torch.utils.trajectories import apply_depth_colormap, create_videos, generate_path
+
 
 def save_png(path, arr):
     from PIL import Image
@@ -22,22 +26,13 @@ def save_png(path, arr):
     Image.fromarray((np.clip(np.asarray(arr), 0, 1) * 255).astype(np.uint8)).save(path)
 
 
-def apply_depth_colormap(depth: np.ndarray, near=None, far=None) -> np.ndarray:
-    """[H,W] depth -> [H,W,3] uint8 turbo-ish visualisation (a copy of
-    `gsjax/utils/trajectories.py:apply_depth_colormap`, vis_utils.py)."""
-    valid = depth > 0
-    if near is None:
-        near = float(depth[valid].min()) if valid.any() else 0.0
-    if far is None:
-        far = float(depth[valid].max()) if valid.any() else 1.0
-    t = np.clip((depth - near) / max(far - near, 1e-9), 0, 1)
-    # simple 3-stop colormap (dark blue -> green -> yellow)
-    r = np.clip(2 * t - 0.5, 0, 1)
-    g = np.clip(2 * t, 0, 1) * (t < 0.75) + np.clip(4 - 4 * t, 0, 1) * (t >= 0.75)
-    b = np.clip(1 - 2 * t, 0, 1)
-    img = np.stack([r, g, b], -1)
-    img[~valid] = 0
-    return (img * 255).astype(np.uint8)
+class _TrajView:
+    """A flythrough frame as `render_set` reads it: a camera and a black
+    ground-truth image."""
+
+    def __init__(self, camera):
+        self.camera = camera
+        self.image = np.zeros((camera.height, camera.width, 3), np.float32)
 
 
 def render_set(model_path, name, iteration, views, render_fn,
@@ -87,8 +82,15 @@ def main(argv=None, on_view=None):
     parser.add_argument("--skip_train", action="store_true")
     parser.add_argument("--skip_test", action="store_true")
     parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--traj_frames", default=0, type=int,
+                        help="also render an N-frame ellipse flythrough "
+                             "(render_utils.py generate_path equivalent)")
     parser.add_argument("--save_depth", action="store_true",
                         help="write colormapped median-depth PNGs too")
+    parser.add_argument("--video", action="store_true",
+                        help="stitch the flythrough frames into .mp4s "
+                             "(render_utils.py create_videos equivalent; "
+                             "needs OpenCV, cv2)")
     parser.add_argument("--pair_capacity", default=1 << 22, type=int,
                         help="kept for flag parity with gsjax; the port sizes "
                              "its pair buffers from the real pair count")
@@ -97,6 +99,13 @@ def main(argv=None, on_view=None):
                              "plain-PyTorch path)")
     args = get_combined_args(parser, argv)
     dev = resolve_device(getattr(args, "device", None))
+    if args.video and args.traj_frames > 0:
+        try:
+            import cv2  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(
+                "--video writes the flythrough with OpenCV (cv2), which does "
+                f"not import here: {e}") from e
 
     iteration = args.iteration
     if iteration == -1:
@@ -132,6 +141,18 @@ def main(argv=None, on_view=None):
     if not args.skip_test and scene.test_views:
         render_set(args.model_path, "test", iteration, scene.test_views,
                    render_fn, save_depth=args.save_depth, on_view=on_view)
+    if args.traj_frames > 0:
+        cams = generate_path([v.camera for v in scene.train_views],
+                             n_frames=args.traj_frames)
+        render_set(args.model_path, "traj", iteration,
+                   [_TrajView(c) for c in cams], render_fn,
+                   save_depth=args.save_depth, on_view=on_view)
+        if args.video:
+            out = create_videos(
+                args.model_path,
+                os.path.join(args.model_path, "traj", f"ours_{iteration}"),
+                f"traj_{iteration}", num_frames=args.traj_frames)
+            print("videos:", ", ".join(out))
 
 
 if __name__ == "__main__":
