@@ -110,9 +110,40 @@ Phases, each printing one JSON line (any failure exits non-zero):
               downsample's size and seconds); the TnT CLI's F1 on synthetic
               files (without matplotlib it writes results.json and no
               figure); the seconds of each stage on the host clock.
+  viewer      the live viewers on the `train` scene (6 views at 1920x1080,
+              100k points): the train CLI with `--ip --port` for 5 steps,
+              whose Python client requests 10 paused frames of view 0's
+              camera before step 1 and one that releases the run (each
+              equal bit for bit to `render()` with backend "cuda" of the
+              starting model, whose colour holds to the twin's within the
+              parity tolerances; the verify string the scene path; B1
+              launched once per step render and per frame); `python -m
+              gsjax_torch.viewer.client` (sibr_client built with g++) writing
+              4 orbit PPMs at 1920x1080, and the web viewer's bridge
+              (`SIBRBridge`) getting one frame, each from `serve_viewer` on a
+              trainer of the same scene with a step after each frame, as the
+              CLI's loop; the web viewer's local mode on a 100k-gaussian PLY:
+              20 POSTs at 1920x1088 (B1 once each, the bytes of one equal to
+              `render()`'s), latency median / p90 on the host clock beside
+              `render()`'s CUDA-event time;
+  diagnostics the train CLI with GSJAX_NAN_PROBE=1 from a checkpoint of the
+              same scene where one gaussian's DC colour is NaN: the probe's
+              dump (gsjax's keys) and NAN_PROBE line, then the snapshot and
+              the FloatingPointError naming it; `python -m
+              gsjax_torch.nan_hunt --no_debug_nans` on the dump (the same
+              non-finite fields as the probe), and its anomaly-mode replay
+              naming the backward op; the step time with the probe off and
+              on in 10 turns (median), and the probe's own work (the state
+              copy and the 18 counts) by CUDA events; the CLI from a checkpoint at step 195
+              to 200 with `--profile_iter 196` (five step spans, B1 and B2
+              kernel events in the trace), `--debug` (regularisation on at
+              200: the 2W x 2H mosaic) and TensorBoard (gsjax's scalar tags,
+              or no event file where `torch.utils.tensorboard` does not
+              import).
 Then the `kernels` line (seven entries: B6 appears twice, as `warp_sample`
 on the dense NCC and as `warp_sample_blocks` on the compacted one; each with
-its launches by path: render, train, train_compact, mesh, evaluate), the
+its launches by path: render, train, train_compact, mesh, evaluate, viewer,
+diagnostics), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
@@ -324,6 +355,27 @@ EVAL_SCALE_RTOL = 1e-4
 # not in SCENES_TAU): F1 at tau above EVAL_F1 (percent; read 94.5, precision
 # 90.6, recall 98.9).
 EVAL_F1 = 85.0
+
+# The viewer phase at 1920x1080 / 100k: the train CLI's SIBR server runs
+# VIEWER_STEPS steps (at the reader's 1600x900: resolution -1 scales a wider
+# image to 1600, as gsjax's); its Python client requests VIEWER_PAUSED
+# paused VIEW_W x VIEW_H frames through train view 0's pose and fov before
+# step 1, then one that releases the run.
+# The native client writes NATIVE_FRAMES orbit PPMs; the web viewer's local
+# mode answers WEB_FRAMES POSTs at WEB_W x WEB_H (gsjax's snap floors to 32
+# pixels, so 1080 would give 1056) after two of warm-up.
+VIEWER_STEPS = 5
+VIEWER_PAUSED = 10
+VIEW_W, VIEW_H = 1920, 1080
+NATIVE_FRAMES = 4
+WEB_FRAMES = 20
+WEB_W, WEB_H = 1920, 1088
+# The diagnostics phase: the step time with the NaN probe on and off in
+# PROBE_TURNS turns each; gsjax's TensorBoard scalar tags (loop.py:781-798).
+PROBE_TURNS = 10
+TB_TAGS = ("train_loss_patches/total_loss", "train_loss_patches/l1_loss",
+           "train_loss_patches/normal_loss", "train_loss_patches/ncc_loss",
+           "train_loss_patches/geo_loss", "total_points", "iter_time", "test/psnr")
 
 
 def emit(obj):
@@ -744,7 +796,6 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
 
     from gsjax_torch import train as train_cli
     from gsjax_torch.data.readers import load_scene
-    from gsjax_torch.data.synth import write_rendered_colmap
     from gsjax_torch.model import appearance as app_lib
     from gsjax_torch.model.io import load_checkpoint, load_ply
     from gsjax_torch.train.loop import Trainer
@@ -753,12 +804,9 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
     kind = "gof" if options else "no"
 
     shutil.rmtree(WORK, ignore_errors=True)
-    scene_dir = os.path.join(WORK, "train_scene")
     model_dir = os.path.join(WORK, "train_model")
     t0 = time.perf_counter()
-    write_rendered_colmap(scene_dir, n_images=n_views, width=width, height=height,
-                          gaussians=bench_gaussians(n), pose_fn=bench_pose,
-                          max_per_tile=1 << 12, points_stride=1, device=dev)
+    scene_dir = write_train_scene(dev, n_views, width, height, n)
     # the model the CLI starts from (Trainer.create is deterministic)
     initial = Trainer.create(load_scene(scene_dir, device=dev), None, model_dir, dev,
                              appearance=kind)
@@ -2173,6 +2221,534 @@ def phase_evaluate(dev):
     return total
 
 
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def write_train_scene(dev, n_views=6, width=1920, height=1080, n=100_000):
+    """The `train` phase's scene under WORK: 6 arc views at 1920x1080 of
+    bench.py's 100k gaussians, whose centres are the sparse points."""
+    from gsjax_torch.data.synth import write_rendered_colmap
+
+    scene_dir = os.path.join(WORK, "train_scene")
+    write_rendered_colmap(scene_dir, n_images=n_views, width=width, height=height,
+                          gaussians=bench_gaussians(n), pose_fn=bench_pose,
+                          max_per_tile=1 << 12, points_stride=1, device=dev)
+    return scene_dir
+
+
+def initial_trainer(scene_dir, model_dir, dev, eval_split=False):
+    """The model the train CLI starts from (Trainer.create is deterministic),
+    with gsjax's default optimisation flags."""
+    from gsjax_torch.config import OptimizationParams
+    from gsjax_torch.data.readers import load_scene
+    from gsjax_torch.train.loop import Trainer
+
+    opt = Namespace(**OptimizationParams._defaults())
+    return Trainer.create(load_scene(scene_dir, eval_split=eval_split, device=dev), opt,
+                          model_dir, dev)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def sibr_request(conn, msg):
+    """One SIBR exchange on a client socket -> (uint8 [h, w, 3], verify, s)."""
+    t0 = time.perf_counter()
+    payload = json.dumps(msg).encode("utf-8")
+    conn.sendall(len(payload).to_bytes(4, "little") + payload)
+    w, h = msg["resolution_x"], msg["resolution_y"]
+
+    def exact(n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = conn.recv(min(n - len(buf), 1 << 22))
+            check(chunk, "the trainer closed the viewer socket")
+            buf += chunk
+        return bytes(buf)
+
+    rgb = np.frombuffer(exact(w * h * 3), np.uint8).reshape(h, w, 3)
+    verify = exact(int.from_bytes(exact(4), "little")).decode()
+    return rgb, verify, time.perf_counter() - t0
+
+
+def phase_viewer(dev, scene_dir, n=100_000, web_size=(WEB_W, WEB_H)):
+    """The live viewers at 1920x1080 on the `train` scene (100k gaussians):
+    the train CLI's SIBR server with a Python client, the native client and
+    the web viewer's bridge on `serve_viewer` over a trainer of the same
+    scene, and the web viewer's local mode on a 100k-gaussian PLY; returns
+    {kernel: launches}."""
+    import socket
+    import threading
+
+    import torch
+
+    from gsjax_torch import train as train_cli
+    from gsjax_torch.config import dump_cfg_args
+    from gsjax_torch.model import gaussians as gm
+    from gsjax_torch.model.io import save_ply
+    from gsjax_torch.ops.raster import render
+    from gsjax_torch.ops.raster.camera import Camera
+    from gsjax_torch.train.loop import serve_viewer
+    from gsjax_torch.viewer import client as native
+    from gsjax_torch.viewer.network_gui import NetworkGUI
+    from gsjax_torch.viewer.web import LocalModel, SIBRBridge, WebViewer, encode_wire_message
+
+    model_dir = os.path.join(WORK, "viewer_model")
+    launches = {}
+
+    # -- the SIBR server of a training run, a Python client ------------------
+    initial = initial_trainer(scene_dir, model_dir, dev)
+    cam0 = initial.scene.train_views[0].camera
+    width, height = VIEW_W, VIEW_H
+    fovx, fovy = (2 * float(np.arctan(t)) for t in (cam0.tan_fovx, cam0.tan_fovy))
+    wv, fp = cam0.world_view.cpu().numpy(), cam0.full_proj.cpu().numpy()
+    paused = encode_wire_message(wv, fp, width, height, fovx, fovy, train=False,
+                                 keep_alive=True)
+    release = dict(paused, train=True, keep_alive=False)
+    port = free_port()
+    log, client = [], {}
+
+    def python_client():
+        try:
+            deadline = time.time() + 300
+            while True:
+                try:
+                    conn = socket.create_connection(("127.0.0.1", port), timeout=1)
+                    break
+                except OSError:
+                    check(time.time() < deadline, "the train CLI's viewer server never listened")
+                    time.sleep(0.005)
+            conn.settimeout(300)
+            with conn:
+                frames = [sibr_request(conn, paused) for _ in range(VIEWER_PAUSED)]
+                client["steps_before_release"] = len(log)
+                frames.append(sibr_request(conn, release))
+            client["frames"] = frames
+        except Exception as e:          # reported by the check below
+            client["error"] = f"{type(e).__name__}: {e}"
+
+    thread = threading.Thread(target=python_client, daemon=True)
+    reset_launches()
+    thread.start()
+    t0 = time.perf_counter()
+    train_cli.main(["-s", scene_dir, "-m", model_dir, "--iterations", str(VIEWER_STEPS),
+                    "--save_iterations", str(VIEWER_STEPS), "--ip", "127.0.0.1",
+                    "--port", str(port), "--device", str(dev)],
+                   on_step=lambda t, m: log.append(m["attempts"]))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    thread.join(60)
+    counts = read_launches()
+    add_counts(launches, counts)
+    check(not thread.is_alive() and "frames" in client,
+          f"the SIBR client did not finish: {client.get('error')}")
+    frames = client["frames"]
+    served = len(frames)
+    frame_ms = [f[2] * 1e3 for f in frames]
+
+    # the same camera on the same initial model: the kernel's frame and the
+    # twin's (outside the counted run)
+    cam = Camera.from_matrices(width, height, fovx, fovy, wv, fp, device=dev)
+    outs = {}
+    for backend in ("cuda", "torch"):
+        cfg = dataclasses.replace(initial.raster_cfg(require_depth=False), backend=backend)
+        scales, opac = gm.scaling_n_opacity_with_3d_filter(initial.params, initial.aux.filter_3d)
+        with torch.no_grad():
+            outs[backend] = render(initial.params.xyz, scales, initial.params.rotation, opac,
+                                   gm.get_features(initial.params), cam, cfg, initial.bg(),
+                                   sg_axis=gm.get_sg_axis(initial.params),
+                                   sg_sharpness=gm.get_sg_sharpness(initial.params),
+                                   sg_color=initial.params.sg_color, alive=initial.aux.alive)
+    want = (torch.clamp(outs["cuda"]["render"], 0, 1) * 255).to(torch.uint8).cpu().numpy()
+    diff = (outs["cuda"]["render"] - outs["torch"]["render"]).abs().amax(-1)
+    twin_close = float((diff <= TOL_COLOR).float().mean())
+    twin_max = float(diff.max())
+
+    # -- the native client (python -m gsjax_torch.viewer.client) -------------
+    t0 = time.perf_counter()
+    exe = native.client_path()
+    build_s = time.perf_counter() - t0
+    prefix = os.path.join(WORK, "orbit")
+    gui = NetworkGUI("127.0.0.1", free_port())
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gsjax_torch.viewer.client", "127.0.0.1",
+         str(gui.listener.getsockname()[1]), "--width", str(width), "--height", str(height),
+         "--frames", str(NATIVE_FRAMES), "--out_prefix", prefix],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 120
+        while gui.conn is None and proc.poll() is None and time.time() < deadline:
+            gui.try_connect()
+            time.sleep(0.005)
+        check(gui.conn is not None, "the native client never connected")
+        reset_launches()
+        native_attempts = 0
+        for _ in range(NATIVE_FRAMES):      # the train loop's order: serve, step
+            serve_viewer(gui, initial, scene_dir, VIEWER_STEPS + NATIVE_FRAMES)
+            native_attempts += initial.step()["attempts"]
+        torch.cuda.synchronize()
+        native_counts = read_launches()
+        add_counts(launches, native_counts)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        gui.close()
+    ppms = sorted(p for p in os.listdir(WORK) if p.startswith("orbit_"))
+    ppm_ok = []
+    for p in ppms:
+        with open(os.path.join(WORK, p), "rb") as f:
+            head = [f.readline().split() for _ in range(3)]
+            body = len(f.read())
+        ppm_ok.append(head == [[b"P6"], [str(width).encode(), str(height).encode()], [b"255"]]
+                      and body == width * height * 3)
+
+    # -- the web viewer's bridge to a training run's server ------------------
+    gui = NetworkGUI("127.0.0.1", free_port())
+    bridge = SIBRBridge("127.0.0.1", gui.listener.getsockname()[1])
+    web = WebViewer(bridge, "127.0.0.1", 0).start()
+    bridge_reply = {}
+
+    def post_bridge():
+        bridge_reply["r"] = http_frame(web, dict(
+            yaw=0.0, pitch=0.0, radius=5.0, target=[0.0, 0.0, 5.0], fovx=1.0,
+            width=width, height=height))
+
+    post = threading.Thread(target=post_bridge, daemon=True)
+    try:
+        post.start()
+        reset_launches()
+        serve_viewer(gui, initial, scene_dir, VIEWER_STEPS + NATIVE_FRAMES + 1)
+        initial.step()
+        torch.cuda.synchronize()
+        bridge_counts = read_launches()
+        add_counts(launches, bridge_counts)
+        post.join(120)
+    finally:
+        web.stop()
+        bridge.close()
+        gui.close()
+    check("r" in bridge_reply, "the bridge's frame never came")
+    b_status, b_w, b_h, b_verify, b_rgb, _ = bridge_reply["r"]
+    del initial
+
+    # -- the web viewer's local mode on a 100k-gaussian PLY ------------------
+    ply_dir = os.path.join(WORK, "web_model")
+    save_ply(os.path.join(ply_dir, "point_cloud", "iteration_30000", "point_cloud.ply"),
+             *bench_params(bench_gaussians(n), dev))
+    dump_cfg_args(ply_dir, Namespace(sh_degree=3, sg_degree=0, kernel_size=0.0,
+                                     white_background=False))
+    model = LocalModel(ply_dir, device=dev)
+    web_w, web_h = web_size
+    req = dict(yaw=0.15, pitch=0.1, radius=5.5, target=[0.0, 0.0, 5.0], fovx=1.0,
+               width=web_w, height=web_h, scaling_modifier=1.0)
+    web = WebViewer(model, "127.0.0.1", 0).start()
+    try:
+        for _ in range(2):                  # warm-up
+            http_frame(web, req)
+        torch.cuda.synchronize()
+        reset_launches()
+        replies = [http_frame(web, req) for _ in range(WEB_FRAMES)]
+        torch.cuda.synchronize()
+        web_counts = read_launches()
+        add_counts(launches, web_counts)
+    finally:
+        web.stop()
+    provider_ms = []                        # LocalModel.frame alone, no HTTP
+    for _ in range(WEB_FRAMES):
+        t0 = time.perf_counter()
+        model.frame(req)
+        provider_ms.append((time.perf_counter() - t0) * 1e3)
+    wcam, ww, wh = model.camera(req)
+    p, aux = model.params, model.aux
+    with torch.no_grad():
+        scales, opac = gm.scaling_n_opacity_with_3d_filter(p, aux.filter_3d)
+        web_render = lambda: render(p.xyz, scales, p.rotation, opac, gm.get_features(p),
+                                    wcam, model.cfg, model.bg, sg_axis=gm.get_sg_axis(p),
+                                    sg_sharpness=gm.get_sg_sharpness(p),
+                                    sg_color=p.sg_color, alive=aux.alive)
+        web_want = (torch.clamp(web_render()["render"], 0, 1) * 255 + 0.5).to(
+            torch.uint8).cpu().numpy().tobytes()
+        render_ms = event_ms(web_render)
+    lat = sorted(r[5] * 1e3 for r in replies)
+
+    emit({"phase": "viewer", "width": width, "height": height, "gaussians": n,
+          "sibr": {"steps": len(log), "attempts": sum(log), "frames_served": served,
+                   "cli_s": cli_s, "steps_before_release": client["steps_before_release"],
+                   "frame_ms": frame_ms,
+                   "paused_frame_ms_median": float(np.median(frame_ms[1:-1])),
+                   "verify": frames[0][1], "launches": counts,
+                   "bit_equal_to_render": bool(np.array_equal(frames[0][0], want)),
+                   "paused_frames_equal": all(np.array_equal(f[0], frames[0][0])
+                                              for f in frames[:-1]),
+                   "twin_color_close_frac": twin_close, "twin_color_max_abs_err": twin_max},
+          "native": {"build_s": build_s, "rc": proc.returncode, "ppms": len(ppms),
+                     "ppm_ok": all(ppm_ok), "stdout_lines": out.count("\n"),
+                     "stderr": err[-300:], "launches": native_counts},
+          "bridge": {"status": b_status, "size": [b_w, b_h], "verify": b_verify,
+                     "bytes": len(b_rgb), "launches": bridge_counts},
+          "web_local": {"frames": WEB_FRAMES, "size": [ww, wh], "verify": model.verify,
+                        "latency_ms_median": float(np.median(lat)),
+                        "latency_ms_p90": float(np.percentile(lat, 90)),
+                        "latency_ms": lat, "render_ms": render_ms,
+                        "frame_call_ms_median": float(np.median(provider_ms)),
+                        "launches": web_counts}})
+    check(frames[0][1] == scene_dir, f"verify string {frames[0][1]!r}")
+    check(client["steps_before_release"] == 0, "the client connected after step 1")
+    check(np.array_equal(frames[0][0], want),
+          "the served frame differs from render() of the starting model")
+    check(all(np.array_equal(f[0], frames[0][0]) for f in frames[:-1]),
+          "paused frames differ")
+    check(twin_close >= FLIP_FRAC and twin_max <= TOL_FLIP,
+          f"served frame's render against the twin: {twin_close} within {TOL_COLOR}, "
+          f"max {twin_max}")
+    check(len(log) == VIEWER_STEPS, f"{len(log)} steps run")
+    check(counts["blend_fwd"] == sum(log) + served,
+          f"blend_fwd launched {counts['blend_fwd']} times for {sum(log)} step renders "
+          f"and {served} frames")
+    check(counts["blend_bwd"] == VIEWER_STEPS, f"blend_bwd launched {counts['blend_bwd']}")
+    check(proc.returncode == 0 and len(ppms) == NATIVE_FRAMES and all(ppm_ok),
+          f"native client rc {proc.returncode}, {len(ppms)} PPMs, {ppm_ok}: {err[-300:]}")
+    check(out.count(f"(scene: {scene_dir})") == NATIVE_FRAMES, "native client's verify")
+    check(native_counts["blend_fwd"] == NATIVE_FRAMES + native_attempts,
+          f"blend_fwd launched {native_counts['blend_fwd']} times for {NATIVE_FRAMES} "
+          f"native frames and {native_attempts} step renders")
+    check(b_status == 200 and (b_w, b_h) == (str(width), str(height))
+          and b_verify == scene_dir and len(b_rgb) == width * height * 3,
+          f"bridge frame {b_status} {b_w}x{b_h} {b_verify!r} {len(b_rgb)} bytes")
+    check(all(r[0] == 200 and (r[1], r[2]) == (str(web_w), str(web_h))
+              and r[3] == model.verify and len(r[4]) == web_w * web_h * 3 for r in replies),
+          "a local-mode frame has the wrong size or verify string")
+    check(web_counts["blend_fwd"] == WEB_FRAMES,
+          f"blend_fwd launched {web_counts['blend_fwd']} times for {WEB_FRAMES} web frames")
+    check(replies[0][4] == web_want, "a local-mode frame differs from render()")
+    return launches
+
+
+def http_frame(web, req):
+    """POST /frame -> (status, X-Width, X-Height, X-Verify, body, seconds)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", web.httpd.server_address[1], timeout=120)
+    try:
+        conn.request("POST", "/frame", body=json.dumps(req))
+        r = conn.getresponse()
+        body = r.read()
+    finally:
+        conn.close()
+    return (r.status, r.getheader("X-Width"), r.getheader("X-Height"),
+            r.getheader("X-Verify"), body, time.perf_counter() - t0)
+
+
+def tensorboard_imports():
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def phase_diagnostics(dev, scene_dir):
+    """The training loop's diagnostics on the `train` scene at 1920x1080 /
+    100k: the NaN probe, the blow-up snapshot and their replay, the probe's
+    cost per step, and one CLI run of five steps (195 -> 200) with
+    --profile_iter, --debug and TensorBoard; returns {kernel: launches}."""
+    import io
+
+    import torch
+
+    from gsjax_torch import nan_hunt
+    from gsjax_torch import train as train_cli
+    from gsjax_torch.model import gaussians as gm
+    from gsjax_torch.model.io import save_checkpoint
+    from gsjax_torch.train.step import nonfinite_count
+
+    launches = {}
+    base = initial_trainer(scene_dir, os.path.join(WORK, "diag_base"), dev, eval_split=True)
+    p, aux = base.params, base.aux
+
+    # -- the probe and the snapshot: a NaN DC colour on the nearest gaussian
+    # in each training view's frame (a deep one is hidden behind others) --
+    poisoned = os.path.join(WORK, "poisoned.npz")
+    dc = p.features_dc.detach().clone()
+    with torch.no_grad():
+        for v in base.scene.train_views:
+            cam = v.camera
+            pc = p.xyz @ cam.world_view[:3, :3].T + cam.world_view[:3, 3]
+            z = pc[:, 2]
+            u = cam.fx * pc[:, 0] / z + cam.cx
+            w = cam.fy * pc[:, 1] / z + cam.cy
+            seen = aux.alive & (z > 0.2) & (u >= 0) & (u < v.width) & (w >= 0) & (w < v.height)
+            p.features_dc[int(torch.where(seen, z, torch.full_like(z, float("inf"))).argmin())] = \
+                float("nan")
+    save_checkpoint(poisoned, p, aux, gm.adam_init(p), 0)
+    with torch.no_grad():
+        p.features_dc.copy_(dc)
+    probe_dir = os.path.join(WORK, "probe_model")
+    printed = io.StringIO()
+    os.environ["GSJAX_NAN_PROBE"] = "1"
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(printed):
+            train_cli.main(["-s", scene_dir, "-m", probe_dir, "--iterations", "3", "--eval",
+                            "--start_checkpoint", poisoned, "--ip", "", "--device", str(dev)])
+        raised = None
+    except FloatingPointError as e:     # the outcome the phase requires
+        raised = str(e)
+    finally:
+        os.environ.pop("GSJAX_NAN_PROBE", None)
+    torch.cuda.synchronize()
+    add_counts(launches, read_launches())
+    text = printed.getvalue()
+    print(text, end="", flush=True)
+    dump = os.path.join(probe_dir, "nan_probe_it1.npz")
+    snap = os.path.join(probe_dir, "snapshot_it1.npz")
+    probe_line = next((ln for ln in text.splitlines() if ln.startswith("NAN_PROBE:")), "")
+    probe_fields = sorted(json.loads(probe_line.split("(counts ")[1].split(")")[0]
+                                     .replace("'", '"')).items()) if probe_line else []
+    probe_bad = sorted(k for k, v in probe_fields if v)
+    want_keys = sorted([f"{t}.{k}" for t in ("params", "adam_mu", "adam_nu")
+                        for k in gm.PARAM_FIELDS] + [f"aux.{k}" for k in gm.AUX_FIELDS]
+                       + ["adam.count", "view_uid", "near_uid", "iteration", "active_sh",
+                          "active_sg"])
+    dump_keys = sorted(np.load(dump).files) if os.path.exists(dump) else []
+
+    # nan_hunt on the card: the counts, then the anomaly-mode replay
+    t0 = time.perf_counter()
+    hunt = subprocess.run([sys.executable, "-m", "gsjax_torch.nan_hunt", dump, "--scene_dir",
+                           scene_dir, "--no_debug_nans", "--device", str(dev)], cwd=ROOT,
+                          capture_output=True,
+                          text=True, timeout=600)
+    hunt_s = time.perf_counter() - t0
+    hunt_line = next((ln for ln in hunt.stdout.splitlines()
+                      if ln.startswith("replay non-finite counts:")), "")
+    hunt_bad = sorted(json.loads(hunt_line.split(":", 1)[1].strip().replace("'", '"'))) \
+        if hunt_line else []
+    anomaly = ""
+    try:
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            nan_hunt.main([dump, "--scene_dir", scene_dir, "--device", str(dev)])
+    except RuntimeError as e:           # detect_anomaly names the op: required
+        anomaly = str(e)
+
+    # -- the probe's cost per step, on a clean model, in turns ----------------
+    for _ in range(2):
+        base.step()
+    times = {False: [], True: []}
+    for _ in range(PROBE_TURNS):
+        for on in (False, True):
+            base.nan_probe = on
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = base.step()
+            torch.cuda.synchronize()
+            times[on].append((time.perf_counter() - t0) * 1e3)
+            check(("nonfinite" in m) == on and not any(
+                v for d in m.get("nonfinite", {}).values() for v in d.values()),
+                "the clean model's step reports non-finite values")
+    check(base._nan_dumps == 0, "the clean model was dumped")
+
+    def probe_work():
+        """What the probe adds to a step, alone: the copy of the pre-step
+        state and the 18 non-finite counts (the step reads them in its one
+        host read, so no sync is added here)."""
+        base.state_copy()
+        tensors = [getattr(base.params, k) for k in gm.PARAM_FIELDS] * 2
+        torch.stack([nonfinite_count(t, base.aux.alive).float() for t in tensors])
+
+    probe_work_ms = event_ms(probe_work)
+
+    # -- --profile_iter, --debug, TensorBoard: steps 196-200 -----------------
+    c195 = os.path.join(WORK, "c195.npz")
+    fresh = initial_trainer(scene_dir, os.path.join(WORK, "diag_base"), dev, eval_split=True)
+    save_checkpoint(c195, fresh.params, fresh.aux, fresh.adam, 195)
+    del fresh, base
+    diag_dir = os.path.join(WORK, "diag_model")
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(["-s", scene_dir, "-m", diag_dir, "--iterations", "200", "--eval",
+                              "--start_checkpoint", c195, "--profile_iter", "196", "--debug",
+                              "--regularization_from_iter", "200", "--ip", "",
+                              "--device", str(dev)])
+    torch.cuda.synchronize()
+    diag_s = time.perf_counter() - t0
+    diag_counts = read_launches()
+    add_counts(launches, diag_counts)
+    with open(os.path.join(diag_dir, "profile", "trace_it196.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("train_step"))
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    b1_events = sum("blend_fwd_kernel" in k for k in kernels)
+    b2_events = sum("blend_bwd_kernel" in k for k in kernels)
+    from PIL import Image
+
+    dbg = os.path.join(diag_dir, "debug")
+    mosaics = sorted(os.listdir(dbg)) if os.path.isdir(dbg) else []
+    sizes = []
+    for name in mosaics:
+        with Image.open(os.path.join(dbg, name)) as im:
+            sizes.append(list(im.size))
+    tb = tensorboard_imports()
+    tags = []
+    if tb:
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+        acc = EventAccumulator(diag_dir)
+        acc.Reload()
+        tags = sorted(acc.Tags()["scalars"])
+    event_files = [f for f in os.listdir(diag_dir) if f.startswith("events.out.tfevents")]
+    v0 = trainer.scene.train_views[0]
+
+    emit({"phase": "diagnostics", "width": v0.width, "height": v0.height,
+          "gaussians": int(trainer.aux.alive.sum()),
+          "probe": {"raised": raised, "probe_line": probe_line[:400], "nonfinite": probe_bad,
+                    "dump_keys_match": dump_keys == want_keys, "snapshot": os.path.exists(snap),
+                    "launches": {k: v for k, v in launches.items()}},
+          "nan_hunt": {"rc": hunt.returncode, "seconds": hunt_s, "counts_line": hunt_line,
+                       "nonfinite": hunt_bad, "stderr": hunt.stderr[-300:],
+                       "anomaly": anomaly[:300]},
+          "probe_cost": {"turns": PROBE_TURNS, "step_ms_off": times[False],
+                         "step_ms_on": times[True],
+                         "median_ms_off": float(np.median(times[False])),
+                         "median_ms_on": float(np.median(times[True])),
+                         "probe_work_ms": probe_work_ms},
+          "profile": {"spans": spans, "kernel_events": len(kernels),
+                      "blend_fwd_kernel_events": b1_events,
+                      "blend_bwd_kernel_events": b2_events},
+          "debug": {"mosaics": mosaics, "sizes": sizes},
+          "tensorboard": {"imports": tb, "scalar_tags": tags, "event_files": len(event_files)},
+          "cli_s": diag_s, "launches": diag_counts})
+    check(raised is not None and snap in raised and os.path.exists(snap),
+          f"the poisoned run did not raise FloatingPointError naming {snap}: {raised}")
+    check(probe_line and dump_keys == want_keys, f"probe dump keys {dump_keys}")
+    check(hunt.returncode == 0 and hunt_bad and hunt_bad == probe_bad,
+          f"nan_hunt counts {hunt_bad} against the probe's {probe_bad}: {hunt.stderr[-300:]}")
+    check("returned nan values" in anomaly, f"anomaly mode: {anomaly[:300]}")
+    check(spans == [f"train_step {i}" for i in range(196, 201)], f"trace spans {spans}")
+    check(b1_events >= 5 and b2_events >= 5,
+          f"trace holds {b1_events} B1 and {b2_events} B2 kernel events")
+    check(trainer.iteration == 200 and sizes == [[2 * v0.width, 2 * v0.height]],
+          f"debug mosaics {mosaics} {sizes}")
+    if tb:
+        check(tags == sorted(TB_TAGS), f"TensorBoard scalar tags {tags}")
+    else:
+        check(not event_files, "an event file without tensorboard")
+    check(diag_counts["blend_bwd"] == 5, f"blend_bwd launched {diag_counts['blend_bwd']}")
+    return launches
+
+
 def profile_step(step):
     """torch.profiler over one step: the device's busy time (the union of its
     kernels' intervals), the step's span on the host clock, the idle share,
@@ -2254,13 +2830,19 @@ def main():
     train_launches = phase_train(dev)
     compact_launches = phase_train(dev, options=True)
     eval_launches = phase_evaluate(dev)
+    shutil.rmtree(WORK, ignore_errors=True)
+    scene_dir = write_train_scene(dev)
+    viewer_launches = phase_viewer(dev, scene_dir)
+    diag_launches = phase_diagnostics(dev, scene_dir)
+    shutil.rmtree(WORK, ignore_errors=True)
     kernel_ms, bound = phase_timing(dev, twin_ms)
     b2_ms, b2_bound = phase_timing_train(dev)
 
     def by_path(name, render=0):
         return {"render": render, "train": train_launches[name],
                 "train_compact": compact_launches[name], "mesh": mesh_launches[name],
-                "evaluate": eval_launches[name]}
+                "evaluate": eval_launches[name], "viewer": viewer_launches[name],
+                "diagnostics": diag_launches[name]}
 
     def entry(name, replaces, max_err, ms, plain_ms, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"gsjax_torch/csrc/{name}.cu",

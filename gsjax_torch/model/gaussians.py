@@ -110,18 +110,21 @@ def scaling_n_opacity_with_3d_filter(p: GaussianParams, filter_3d: torch.Tensor)
 def params_from_numpy(params: dict[str, np.ndarray], aux: dict[str, np.ndarray],
                       device: str | torch.device) -> tuple[GaussianParams, GaussianAux]:
     """gsjax `GaussianParams` / `GaussianAux` leaves (numpy, keyed by field
-    name) -> the port's model on `device`."""
+    name) -> the port's model on `device`. The model owns copies: training
+    updates it in place, which must not write through to the caller's
+    arrays (on the CPU a numpy array can share memory with a tensor, and
+    with a JAX array that is still reading it)."""
     def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return torch.tensor(np.asarray(a, np.float32), device=device)
 
     p = GaussianParams(**{k: f32(params[k]) for k in PARAM_FIELDS})
     a = GaussianAux(
-        alive=torch.as_tensor(np.asarray(aux["alive"], bool), device=device),
+        alive=torch.tensor(np.asarray(aux["alive"], bool), device=device),
         filter_3d=f32(aux["filter_3d"]),
         grad_accum=f32(aux["grad_accum"]),
         grad_accum_abs=f32(aux["grad_accum_abs"]),
         denom=f32(aux["denom"]),
-        max_radii=torch.as_tensor(np.asarray(aux["max_radii"], np.int32), device=device),
+        max_radii=torch.tensor(np.asarray(aux["max_radii"], np.int32), device=device),
     )
     return p, a
 

@@ -4,10 +4,11 @@
 
 `main` mirrors the repository's `train.py` (the reference `train.py:382-421`
 flag surface) plus `--device`: training runs on cuda unless `--device cpu`
-is given. `--use_decoupled_appearance` and `GSJAX_NCC_COMPACT=1` work as in
-gsjax. `--ip` defaults to none here, since the viewer server is not
-ported; asking for it, or for sharding, multi-host, `--profile_iter` or
-`--debug`, raises.
+is given. Every flag of gsjax's works as in gsjax: `--use_decoupled_appearance`,
+`GSJAX_NCC_COMPACT=1`, `GSJAX_NAN_PROBE=1`, `--profile_iter`, `--debug`, and
+`--ip` / `--port` (default 127.0.0.1:6009, as `train.py:15-16`: every run
+offers the SIBR viewer server; one that cannot bind prints so and trains
+on). Only sharding and multi-host (`--n_devices != 1`, `--dist_*`) raise.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def main(argv=None, on_step=None):
     lp = ModelParams(parser)
     op = OptimizationParams(parser)
     pp = PipelineParams(parser)
-    parser.add_argument("--ip", type=str, default=None)
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6009)
     parser.add_argument("--debug_from", type=int, default=-1)
     parser.add_argument("--detect_anomaly", action="store_true", default=False)

@@ -28,13 +28,24 @@ gof, of the CNN) at gsjax's learning rates (loop.py:537-554). Checkpoints
 carry its state under `x_app/...`, as gsjax's, and `--start_checkpoint`
 restores it.
 
-Not ported (each raises when asked for): sharding and multi-host, the SIBR
-viewer server, the NaN probe, the debug mosaics, TensorBoard and the
-profiler trace.
+The loop's extras are gsjax's: `--ip/--port` serves the SIBR remote viewer
+before each step (`serve_viewer`, frames from `render_camera`);
+GSJAX_NAN_PROBE=1 dumps the pre-step state of the first three steps that
+leave an alive gaussian non-finite (`nan_probe_it{it}.npz`, replayed by
+`python -m gsjax_torch.nan_hunt`); a non-finite loss dumps
+`snapshot_it{it}.npz` before it raises; `--profile_iter` traces five steps
+with `torch.profiler` under `<model>/profile/`; `--debug` writes a gt |
+render / normal | depth mosaic every 200 regularised steps under
+`<model>/debug/`; TensorBoard gets gsjax's scalars, histogram and images
+where `torch.utils.tensorboard` imports.
+
+Not ported (each raises when asked for): sharding and multi-host
+(`--n_devices != 1`, `--dist_*`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,9 +62,12 @@ from gsjax_torch.model import gaussians as gm
 from gsjax_torch.model.io import load_checkpoint, save_checkpoint, save_ply
 from gsjax_torch.ops.knn import mean_knn_dist2
 from gsjax_torch.ops.raster import RasterConfig, render
+from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.train import losses
 from gsjax_torch.train.step import LossConfig, train_step
 from gsjax_torch.utils.schedules import expon_lr
+from gsjax_torch.utils.trajectories import apply_depth_colormap
+from gsjax_torch.viewer.network_gui import NetworkGUI
 
 APPEARANCE_KINDS = {0: "no", 1: "gs", 2: "gof", 3: "pgsr"}
 
@@ -87,6 +101,13 @@ class Trainer:
     # device-resident gt and luma frames, LRU bounded in bytes
     gt_cache_bytes: int = 512 * 1024 * 1024
     _gt_cache: dict = dataclasses.field(default_factory=dict)
+    debug: bool = False   # the gt / render / normal / depth mosaics
+    # the NaN probe (GSJAX_NAN_PROBE=1): per-field non-finite counts from
+    # the step; the pre-step state of the first three poisoned steps is
+    # dumped for `python -m gsjax_torch.nan_hunt`
+    nan_probe: bool = dataclasses.field(default_factory=lambda: os.environ.get(
+        "GSJAX_NAN_PROBE", "") not in ("", "0"))
+    _nan_dumps: int = 0
 
     @staticmethod
     def create(scene: SceneInfo, opt, model_path, device, sh_degree=3, sg_degree=0,
@@ -243,7 +264,8 @@ class Trainer:
                           reg_on=reg_on, mv_on=near is not None,
                           pixel_noise_th=o.multi_view_pixel_noise_th,
                           patch_size=o.multi_view_patch_size,
-                          appearance=self.app.kind, ncc_compact=ncc_compact)
+                          appearance=self.app.kind, ncc_compact=ncc_compact,
+                          nan_stats=self.nan_probe)
         step_args = {}
         if near is not None:
             step_args = dict(near_cam=near.camera, gray_r=self.gray_for(view),
@@ -254,6 +276,9 @@ class Trainer:
             bg = torch.rand(3, generator=self.generator, device=self.device)
         else:
             bg = self.bg()
+
+        # the step updates params and Adam in place: the probe keeps a copy
+        prev = self.state_copy() if self.nan_probe else None
 
         # overflow retry: a view whose largest tile list exceeds the cap is
         # re-run, loss-free, after raising the cap (train_step changes
@@ -272,9 +297,24 @@ class Trainer:
         metrics["max_per_tile"] = self.max_per_tile    # the cap this step ran with
         metrics["view"] = view.uid
         metrics["near"] = near.uid if near is not None else None
+        if self.nan_probe:
+            self.probe_nonfinite(metrics, prev, view, near)
+        if self.debug and reg_on and it % 200 == 0:
+            self.write_debug_mosaic(view)
+        # on blow-up, the step's state and views, replayable offline (the
+        # reference's snapshot_fw.dump, diff_gaussian_rasterization/__init__.py:101-107)
         if not np.isfinite(metrics["loss"]):
+            path = os.path.join(self.model_path, f"snapshot_it{it}.npz")
+            flat = {f"params_{i}": getattr(self.params, k).detach().cpu().numpy()
+                    for i, k in enumerate(gm.PARAM_FIELDS)}
+            flat.update({f"aux_{i}": getattr(self.aux, k).cpu().numpy()
+                         for i, k in enumerate(gm.AUX_FIELDS)})
+            flat.update(view_uid=np.asarray(view.uid), iteration=np.asarray(it),
+                        near_uid=np.asarray(-1 if near is None else near.uid))
+            np.savez_compressed(path, **flat)
             raise FloatingPointError(
-                f"non-finite loss at iteration {it} (view {view.image_name})")
+                f"non-finite loss at iteration {it} "
+                f"(view {view.image_name}); state dumped to {path}")
         self.step_appearance(view.uid, metrics)
 
         # densification schedule (train.py:233-258)
@@ -294,17 +334,86 @@ class Trainer:
         self.monitor_capacity(metrics)
         return metrics
 
+    # --- diagnostics ---------------------------------------------------------
+
+    def state_copy(self) -> dict:
+        """A copy of the model and Adam state on the device, under the NaN
+        probe's keys (gsjax loop.py:495-503): `params.<field>`,
+        `aux.<field>`, `adam_mu.<field>`, `adam_nu.<field>`, `adam.count`."""
+        take = lambda t: t.detach().clone()
+        out = {f"params.{k}": take(getattr(self.params, k)) for k in gm.PARAM_FIELDS}
+        out.update({f"aux.{k}": take(getattr(self.aux, k)) for k in gm.AUX_FIELDS})
+        for name, moments in (("adam_mu", self.adam.mu), ("adam_nu", self.adam.nu)):
+            out.update({f"{name}.{k}": take(moments[k]) for k in gm.PARAM_FIELDS})
+        out["adam.count"] = np.asarray(self.adam.count, np.int32)
+        return out
+
+    def probe_nonfinite(self, metrics, prev, view, near):
+        """The NaN probe after a step (gsjax loop.py:487-514): on the first
+        three steps that leave an alive gaussian non-finite, dump `prev`, the
+        pre-step state, with the views and schedule to replay it."""
+        nf = {f"{k}.{f}": v for k, d in metrics["nonfinite"].items() for f, v in d.items()}
+        if not any(nf.values()) or self._nan_dumps >= 3:
+            return
+        self._nan_dumps += 1
+        it = self.iteration
+        path = os.path.join(self.model_path, f"nan_probe_it{it}.npz")
+        flat = {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in prev.items()}
+        flat.update(view_uid=np.asarray(view.uid),
+                    near_uid=np.asarray(-1 if near is None else near.uid),
+                    iteration=np.asarray(it), active_sh=np.asarray(self.active_sh),
+                    active_sg=np.asarray(self.active_sg))
+        np.savez_compressed(path, **flat)
+        print(f"NAN_PROBE: iteration {it} produced non-finite values "
+              f"{sorted(k for k, v in nf.items() if v)} (counts {nf}); "
+              f"pre-step state dumped to {path}", flush=True)
+
+    def debug_mosaic(self, view) -> np.ndarray:
+        """[2H, 2W, 3] float32 in [0, 1]: gt | render over normal | depth
+        (the reference's PatchMatch debug dumps, loss_utils.py:201-221,
+        without the warp-weight pane; gsjax loop.py:604-623)."""
+        out = self.render_view(view, require_depth=True)
+        host = lambda t: t.cpu().numpy()
+        gt = np.clip(host(self.gt_for(view)), 0, 1)
+        img = np.clip(host(out["render"]), 0, 1)
+        nrm = np.clip((host(out["normal"]) + 1) * 0.5, 0, 1)
+        dep = apply_depth_colormap(host(out["median_depth"])).astype(np.float32) / 255.0
+        return np.concatenate([np.concatenate([gt, img], axis=1),
+                               np.concatenate([nrm, dep], axis=1)], axis=0)
+
+    def write_debug_mosaic(self, view):
+        """`debug_mosaic` as `<model>/debug/{it:05d}_{name}.jpg`."""
+        from PIL import Image
+
+        dbg = os.path.join(self.model_path, "debug")
+        os.makedirs(dbg, exist_ok=True)
+        Image.fromarray((self.debug_mosaic(view) * 255).astype(np.uint8)).save(
+            os.path.join(dbg, f"{self.iteration:05d}_{view.image_name}.jpg"))
+
     # --- eval / io -----------------------------------------------------------
 
+    def render_view(self, view, require_depth=True, min_opacity=0.0):
+        return self.render_camera(view.camera, require_depth=require_depth,
+                                  min_opacity=min_opacity)
+
     @torch.no_grad()
-    def render_view(self, view, require_depth=True):
+    def render_camera(self, camera, scaling_modifier=1.0, require_depth=True,
+                      min_opacity=0.0):
+        """Render any camera (the viewer's path; gsjax loop.py:583-602).
+        `scaling_modifier` multiplies the activated, 3D-filtered scales;
+        `min_opacity` > 0 drops gaussians of lower filtered opacity."""
         scales, opac = gm.scaling_n_opacity_with_3d_filter(self.params, self.aux.filter_3d)
+        if scaling_modifier != 1.0:
+            scales = scales * float(np.float32(scaling_modifier))
+        alive = self.aux.alive
+        if min_opacity > 0.0:
+            alive = alive & (opac[:, 0] >= min_opacity)
         return render(self.params.xyz, scales, self.params.rotation, opac,
-                      gm.get_features(self.params), view.camera,
+                      gm.get_features(self.params), camera,
                       self.raster_cfg(require_depth), self.bg(),
                       sg_axis=gm.get_sg_axis(self.params),
                       sg_sharpness=gm.get_sg_sharpness(self.params),
-                      sg_color=self.params.sg_color, alive=self.aux.alive)
+                      sg_color=self.params.sg_color, alive=alive)
 
     def evaluate(self, views, max_views=None):
         psnrs = []
@@ -326,20 +435,88 @@ class Trainer:
                         app_lib.state_to_arrays(self.app))
 
 
-def _refuse_unported(lp, pp, args):
+def serve_viewer(gui: NetworkGUI, trainer: Trainer, source_path: str, final_iter: int):
+    """One viewer exchange before a step (reference train.py:93-120, gsjax
+    loop.py:646-672): receive a camera, render it at the requested scaling
+    modifier, send the uint8 RGB and the source path as the verify string;
+    loop while the client keeps the run paused. Any error drops the
+    connection, as gsjax's: a failed kernel launch still stops the run,
+    since a CUDA error is sticky and the next step raises it."""
+    if gui.conn is None:
+        gui.try_connect()
+    while gui.conn is not None:
+        try:
+            cam_d, do_training, keep_alive, scaling_mod = gui.receive()
+            img = None
+            if cam_d is not None:
+                cam = Camera.from_matrices(cam_d["width"], cam_d["height"], cam_d["fovx"],
+                                           cam_d["fovy"], cam_d["world_view"],
+                                           cam_d["full_proj"], device=trainer.device)
+                out = trainer.render_camera(cam, scaling_modifier=scaling_mod,
+                                            require_depth=False)
+                # contiguous on the card: the render is a channels-last view of
+                # its planes, and a strided host gather of a 1080p frame costs
+                # tens of ms
+                img = (torch.clamp(out["render"], 0, 1) * 255).to(torch.uint8)
+                img = img.contiguous().cpu().numpy()
+            gui.send(img, source_path)
+            if do_training and (trainer.iteration < final_iter or not keep_alive):
+                break
+        except Exception:
+            gui.disconnect()
+
+
+def _refuse_unported(args):
     """Raise for the gsjax options this port leaves out."""
     asks = {
-        "--ip (the SIBR viewer server)": getattr(args, "ip", None),
         "--n_devices != 1 (sharding)": int(getattr(args, "n_devices", 1) or 1) != 1,
         "multi-host (--dist_*)": (getattr(args, "dist_coordinator", "")
                                   or int(getattr(args, "dist_num_processes", 1) or 1) != 1
                                   or getattr(args, "dist_auto", False)),
-        "--profile_iter (profiler trace)": int(getattr(args, "profile_iter", 0) or 0),
-        "--debug (debug mosaics)": bool(getattr(pp, "debug", False)),
     }
     asked = [k for k, v in asks.items() if v]
     if asked:
         raise NotImplementedError("not ported to gsjax_torch yet: " + ", ".join(asked))
+
+
+def _tensorboard(model_path):
+    """gsjax's soft dependency (loop.py:735-742): a SummaryWriter where
+    `torch.utils.tensorboard` imports, else None and no scalars."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(model_path)
+
+
+def _profiler(device):
+    """A torch.profiler recording the host and, on a card, its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def _report(tb, trainer, scene, it, test_iters):
+    """TensorBoard's test-time entries (gsjax loop.py:797-818): PSNR, the
+    opacity histogram, the first five test views' renders and depths (and
+    their gt at the first test iteration)."""
+    alive = trainer.aux.alive
+    op = gm.get_opacity(trainer.params).detach()[alive].cpu().numpy()
+    if op.size:
+        tb.add_histogram("scene/opacity_histogram", op, it)
+    for v in scene.test_views[:5]:
+        out = trainer.render_view(v, require_depth=True)
+        tb.add_image(f"{v.image_name}/render",
+                     np.clip(out["render"].cpu().numpy(), 0, 1), it, dataformats="HWC")
+        tb.add_image(f"{v.image_name}/depth",
+                     apply_depth_colormap(out["median_depth"].cpu().numpy()), it,
+                     dataformats="HWC")
+        if it == min(test_iters):
+            tb.add_image(f"{v.image_name}/ground_truth", trainer.gt_for(v).cpu().numpy(),
+                         it, dataformats="HWC")
 
 
 def run_training(lp, op, pp, args, device=None, on_step=None):
@@ -348,8 +525,25 @@ def run_training(lp, op, pp, args, device=None, on_step=None):
     after every step."""
     from gsjax_torch import resolve_device
 
-    _refuse_unported(lp, pp, args)
+    _refuse_unported(args)
     dev = resolve_device(device)
+    # the live-viewer server (SIBR remote protocol, reference train.py:93-120),
+    # bound before the scene loads so that a viewer can connect during set-up
+    # and see the first step's model
+    gui = None
+    if getattr(args, "ip", None):
+        try:
+            gui = NetworkGUI(args.ip, int(getattr(args, "port", 6009)))
+        except OSError as e:
+            print(f"viewer server unavailable ({e}); training without GUI")
+    try:
+        return _train(lp, op, pp, args, dev, on_step, gui)
+    finally:
+        if gui is not None:
+            gui.close()
+
+
+def _train(lp, op, pp, args, dev, on_step, gui):
     scene = load_scene(lp.source_path, lp.images, lp.masks or None, lp.eval,
                        lp.resolution, lp.white_background, device=dev)
     build_nearest_view_graph(scene.train_views, lp.multi_view_max_angle,
@@ -370,6 +564,7 @@ def run_training(lp, op, pp, args, device=None, on_step=None):
         disable_filter3d=lp.disable_filter3D, seed=int(getattr(args, "seed", 0) or 0),
         appearance=APPEARANCE_KINDS[lp.use_decoupled_appearance])
     trainer.random_background = bool(getattr(op, "random_background", False))
+    trainer.debug = bool(getattr(pp, "debug", False))
     if getattr(args, "start_checkpoint", None):
         p, a, ad, it, extra = load_checkpoint(args.start_checkpoint, device=dev)
         trainer.params, trainer.aux, trainer.adam, trainer.iteration = p, a, ad, it
@@ -378,27 +573,70 @@ def run_training(lp, op, pp, args, device=None, on_step=None):
     test_iters = set(getattr(args, "test_iterations", [7000, 30000])) | {op.iterations}
     save_iters = set(getattr(args, "save_iterations", [7000, 30000])) | {op.iterations}
     ckpt_iters = set(getattr(args, "checkpoint_iterations", [15000]))
+    # TensorBoard where it imports, and a torch.profiler trace of the five
+    # steps from profile_iter (gsjax loop.py:735-771), both closed (the trace
+    # written) even when a step raises
+    profile_iter = int(getattr(args, "profile_iter", 0) or 0)
+    prof = None
+    tb = _tensorboard(lp.model_path)
+
+    def stop_profile():
+        nonlocal prof
+        if prof is not None:
+            prof.stop()
+            trace_dir = os.path.join(lp.model_path, "profile")
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, f"trace_it{profile_iter}.json"))
+            prof = None
 
     ema = 0.0
     t0 = time.time()
-    while trainer.iteration < op.iterations:
-        metrics = trainer.step()
-        it = trainer.iteration
-        if on_step is not None:
-            on_step(trainer, metrics)
-        ema = 0.4 * metrics["loss"] + 0.6 * ema
-        if it % 100 == 0:
-            dt = time.time() - t0
-            print(f"[{it}] loss={ema:.4f} n={int(trainer.aux.alive.sum())} "
-                  f"pairs={metrics['num_pairs']} {100 / dt:.2f} it/s", flush=True)
-            t0 = time.time()
-        if it in test_iters and scene.test_views:
-            psnr = trainer.evaluate(scene.test_views)
-            print(f"[{it}] test PSNR {psnr:.3f}", flush=True)
-            with open(os.path.join(lp.model_path, f"chkpnt{it}.txt"), "w") as f:
-                f.write(f"[ITER {it}] Evaluating test: PSNR {psnr}\n")
-        if it in save_iters:
-            trainer.save_model()
-        if it in ckpt_iters:
-            trainer.save_ckpt()
+    try:
+        while trainer.iteration < op.iterations:
+            if gui is not None:
+                serve_viewer(gui, trainer, lp.source_path, op.iterations)
+            if profile_iter and trainer.iteration + 1 == profile_iter:
+                prof = _profiler(dev)
+                prof.start()
+            span = (torch.profiler.record_function(f"train_step {trainer.iteration + 1}")
+                    if prof is not None else contextlib.nullcontext())
+            with span:
+                metrics = trainer.step()
+            if prof is not None and trainer.iteration >= profile_iter + 4:
+                stop_profile()
+            it = trainer.iteration
+            if on_step is not None:
+                on_step(trainer, metrics)
+            ema = 0.4 * metrics["loss"] + 0.6 * ema
+            if it % 100 == 0:
+                dt = time.time() - t0
+                n_alive = int(trainer.aux.alive.sum())
+                print(f"[{it}] loss={ema:.4f} n={n_alive} "
+                      f"pairs={metrics['num_pairs']} {100 / dt:.2f} it/s", flush=True)
+                if tb is not None:
+                    tb.add_scalar("train_loss_patches/total_loss", ema, it)
+                    for k, tag in (("l1", "train_loss_patches/l1_loss"),
+                                   ("dn_loss", "train_loss_patches/normal_loss"),
+                                   ("ncc_loss", "train_loss_patches/ncc_loss"),
+                                   ("geo_loss", "train_loss_patches/geo_loss")):
+                        tb.add_scalar(tag, float(metrics[k]), it)
+                    tb.add_scalar("total_points", n_alive, it)
+                    tb.add_scalar("iter_time", dt / 100.0 * 1000.0, it)
+                t0 = time.time()
+            if it in test_iters and scene.test_views:
+                psnr = trainer.evaluate(scene.test_views)
+                print(f"[{it}] test PSNR {psnr:.3f}", flush=True)
+                with open(os.path.join(lp.model_path, f"chkpnt{it}.txt"), "w") as f:
+                    f.write(f"[ITER {it}] Evaluating test: PSNR {psnr}\n")
+                if tb is not None:
+                    tb.add_scalar("test/psnr", psnr, it)
+                    _report(tb, trainer, scene, it, test_iters)
+            if it in save_iters:
+                trainer.save_model()
+            if it in ckpt_iters:
+                trainer.save_ckpt()
+    finally:
+        stop_profile()
+        if tb is not None:
+            tb.close()
     return trainer

@@ -42,6 +42,9 @@ class LossConfig:
     patch_size: int = 3
     appearance: str = "no"        # no | gs | pgsr | gof
     ncc_compact: bool = False     # the block-compacted NCC (GSJAX_NCC_COMPACT)
+    # the NaN probe (GSJAX_NAN_PROBE): metrics["nonfinite"] counts, per
+    # field, the alive gaussians with a non-finite gradient or updated value
+    nan_stats: bool = False
 
 
 def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamState,
@@ -61,7 +64,10 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
     without the model / the net).
 
     `params` and `adam` are updated in place (the same objects come back);
-    `aux` is replaced. When the frame's largest tile list exceeds
+    `aux` is replaced. With `loss_cfg.nan_stats`, metrics["nonfinite"] is
+    gsjax's {"grad": {field: n}, "param": {field: n}}: the alive gaussians
+    with any non-finite element in the masked gradient / the updated
+    parameter, read in the step's one host read. When the frame's largest tile list exceeds
     `cfg.max_per_tile` the blend would train on truncated lists: the step
     then stops after the forward, changes nothing and returns
     metrics["overflowed"] = True, so the caller can raise the cap and retry
@@ -141,11 +147,28 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
         aux = dataclasses.replace(aux, max_radii=torch.maximum(
             aux.max_radii, torch.where(vis, out["radii"], torch.zeros_like(out["radii"]))))
         gm.adam_update(params, grads, adam, lrs)
-        loss, l1v, ssv, dnv, nccv, geov = torch.stack(
-            [total, ll1, ssim_val, dn_loss, ncc_loss, geo_loss]).tolist()
+        scalars = [total, ll1, ssim_val, dn_loss, ncc_loss, geo_loss]
+        if loss_cfg.nan_stats:
+            scalars += [nonfinite_count(t, aux.alive) for t in
+                        [grads[k] for k in gm.PARAM_FIELDS]
+                        + [getattr(params, k) for k in gm.PARAM_FIELDS]]
+        loss, l1v, ssv, dnv, nccv, geov, *bad = torch.stack(
+            [s.float() for s in scalars]).tolist()
+    nonfinite = {}
+    if loss_cfg.nan_stats:
+        n = len(gm.PARAM_FIELDS)
+        nonfinite = {"nonfinite": {
+            kind: {k: int(c) for k, c in zip(gm.PARAM_FIELDS, bad[i * n:(i + 1) * n])}
+            for i, kind in enumerate(("grad", "param"))}}
     # ncc_win_rej: gsjax's count of taps lost to its TPU sampler's window;
     # the port samples every tap
     return params, aux, adam, dict(counts, overflowed=False, loss=loss, l1=l1v,
                                    ssim=ssv, dn_loss=dnv, ncc_loss=nccv, geo_loss=geov,
                                    ncc_win_rej=0, app_grad=app_grad,
-                                   app_net_grad=app_net_grad, **mv)
+                                   app_net_grad=app_net_grad, **mv, **nonfinite)
+
+
+def nonfinite_count(t: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """The alive rows of `t` [N, ...] with any non-finite element."""
+    bad = ~torch.isfinite(t).reshape(t.shape[0], -1).all(dim=1)
+    return (bad & alive).sum()

@@ -72,7 +72,9 @@ def test_import_pulls_in_no_jax():
             "gsjax_torch.mesh_extract_tetrahedra, gsjax_torch.metric, gsjax_torch.eval, "
             "gsjax_torch.eval.lpips, gsjax_torch.eval.dtu, gsjax_torch.eval.tnt, "
             "gsjax_torch.evaluate_dtu_mesh, gsjax_torch.eval_tnt, gsjax_torch.convert, "
-            "gsjax_torch.utils.trajectories, gsjax_torch.utils.mvs, gsjax_torch.utils.llff; "
+            "gsjax_torch.utils.trajectories, gsjax_torch.utils.mvs, gsjax_torch.utils.llff, "
+            "gsjax_torch.viewer, gsjax_torch.viewer.network_gui, gsjax_torch.viewer.web, "
+            "gsjax_torch.viewer.client, gsjax_torch.nan_hunt; "
             "import sys; assert not any(m == 'jax' or m.startswith(('jax.', 'gsjax.')) "
             "or m == 'gsjax' for m in sys.modules), sorted(sys.modules)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

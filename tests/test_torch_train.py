@@ -116,12 +116,12 @@ def test_losses_and_densify_match_gsjax(runs):
     assert all(m.get("densify") is None for i, m in enumerate(ports) if i not in (4, 9))
 
 
-def _start(root):
+def _start(root, width=96, height=64):
     """A rendered arc scene under `root` and a checkpoint of its gaussians;
     returns (scene dir, checkpoint path)."""
     scene = str(root / "scene")
     means, scales, quats, opac, shs = write_rendered_colmap(
-        scene, n_images=6, width=96, height=64, device="cpu")
+        scene, n_images=6, width=width, height=height, device="cpu")
     n, cap = len(means), 512
     pad = lambda x, fill=0.0: np.concatenate(
         [x, np.full((cap - n,) + x.shape[1:], fill, np.float32)]).astype(np.float32)
@@ -225,7 +225,7 @@ def test_gof_checkpoint_loads_in_both_packages(app_run):
 
 
 def test_unported_options_raise(tmp_path):
-    for extra in (["--ip", "127.0.0.1"], ["--n_devices", "2"], ["--profile_iter", "3"]):
+    for extra in (["--n_devices", "2"], ["--dist_num_processes", "2"]):
         with pytest.raises(NotImplementedError):
             ttrain.main(["-s", str(tmp_path / "none"), "-m", str(tmp_path / "out"),
                          "--device", "cpu", *extra])
