@@ -10,8 +10,10 @@ one JSON line of CUDA-event milliseconds at chip_smoke's workloads
 depth, B2 with and without it, B3 on the multi-view query and on the tetra
 points of a 100k-gaussian sphere, B4 on those points (in the order of the
 checkout's integrate path), B5, B6, the dense NCC's forward + backward, a
-whole `render()`, a train step with regularisation and one with the
-multi-view losses, beside the card's name and power limit; where the
+whole `render()`, preprocess forward + backward (as chip_smoke's
+`timing_train`), a train step with regularisation and one with the
+multi-view losses (each also with the allocator's peak over one call),
+beside the card's name and power limit; where the
 checkout has the block-compacted NCC, also B6 on its compacted taps, its
 forward + backward and the multi-view step with it; where the checkout's kernels have profile counters, also
 B2's and B5's readings of them (`render_cuda.bwd_stats`) and B4's
@@ -32,6 +34,17 @@ import os
 import sys
 
 REPS = 30        # launches per kernel timing (chip_smoke's event_ms takes 10)
+
+
+def peak_bytes(fn):
+    """The allocator's peak over one call of `fn`, in bytes."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
 
 
 def integrate_views(cs, dev, w, h, n=20_000, rounds=4, reps=10):
@@ -164,6 +177,8 @@ def main(argv=None):
     from gsjax_torch.ops import sample_cuda
     from gsjax_torch.ops import warp_sample as ws
     from gsjax_torch.ops.raster import RasterConfig, render, render_cuda
+    from gsjax_torch.ops.raster.preprocess import preprocess
+    from gsjax_torch.ops.raster.render_ref import prepare_pairs
     from gsjax_torch.ops.sample import prepare_query
     from gsjax_torch.train.step import LossConfig, train_step
 
@@ -207,7 +222,18 @@ def main(argv=None):
         *lists, planes_nd, grad_nd, *tail, cfg_nd), reps=REPS)
     del planes_nd, grad_nd
     out["render_ms"] = cs.event_ms(lambda: render(*scene, cam, cfg, bg))
-    del planes, grad, feats, binning
+
+    # preprocess under autograd, as chip_smoke's timing_train phase times it
+    prep_in = [a.clone().requires_grad_(True) for a in scene]
+    d_feats = render_cuda.blend_bwd(*lists, planes, grad, *tail, cfg)
+
+    def prep_bwd():
+        p = preprocess(*prep_in, None, None, None, cam, cfg)
+        return torch.autograd.grad(prepare_pairs(p, binning), prep_in, d_feats,
+                                   allow_unused=True)
+
+    out["preprocess_fwd_bwd_ms"] = cs.event_ms(prep_bwd, reps=REPS)
+    del planes, grad, feats, binning, prep_in, d_feats
 
     # train steps (each ends in a host read of the loss)
     params, aux = cs.bench_params(g, dev)
@@ -215,8 +241,11 @@ def main(argv=None):
     lrs = dict(xyz=1.6e-4, features_dc=0.0025, features_rest=0.0001, opacity=0.05,
                scaling=0.005, rotation=0.001, sg_axis=0.002, sg_sharpness=0.095,
                sg_color=0.00064)
-    out["train_step_reg_on_ms"] = cs.event_ms(lambda: train_step(
-        params, aux, adam, cam, gt, bg, lrs, cfg, LossConfig(reg_on=True)), reps=5)
+    def step_reg():
+        return train_step(params, aux, adam, cam, gt, bg, lrs, cfg, LossConfig(reg_on=True))
+
+    out["train_step_reg_on_ms"] = cs.event_ms(step_reg, reps=5)
+    out["train_step_reg_on_peak_bytes"] = peak_bytes(step_reg)
 
     # B3, B5, B6 and the multi-view step on the neighbour query
     sc = cs.mv_scene(w, h, n, dev)
@@ -241,9 +270,12 @@ def main(argv=None):
     ref, near = sc["cams"]
     out.update(ncc_timings(cs, sc))
     mv = dict(near_cam=near, gray_r=sc["gray"][0], gray_n=gray_n)
-    out["train_step_mv_ms"] = cs.event_ms(lambda: train_step(
-        params, aux, adam, ref, gt, bg, lrs, cfg, LossConfig(reg_on=True, mv_on=True), **mv),
-        reps=5)
+    def step_mv():
+        return train_step(params, aux, adam, ref, gt, bg, lrs, cfg,
+                          LossConfig(reg_on=True, mv_on=True), **mv)
+
+    out["train_step_mv_ms"] = cs.event_ms(step_mv, reps=5)
+    out["train_step_mv_peak_bytes"] = peak_bytes(step_mv)
     if "ncc_compact" in inspect.signature(LossConfig).parameters:
         out["train_step_mv_compact_ms"] = cs.event_ms(lambda: train_step(
             params, aux, adam, ref, gt, bg, lrs, cfg,

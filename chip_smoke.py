@@ -7,6 +7,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
   device      the card's name and power limit (nvidia-smi);
   build       compile every hand-written kernel from `gsjax_torch/csrc/`
               with nvcc, one process per source, all started together;
+  multi_gpu_bands  B1 and B2 on tile-row lists (the multi-device path's
+              bands) at 1920x1080 / 100k: equal 2- and 4-band partitions and
+              the dual partition of `paired_balance_bounds` on the frame's
+              row histogram; each band's binning equals the full binning on
+              its tiles, B1's band planes and B2's band pair gradients equal
+              the full-frame launch's bit for bit (max abs error 0), with
+              each band launch's CUDA-event time beside the full launch's;
   parity      `render()` with backend "cuda" (kernel B1) against backend
               "torch" (its plain-PyTorch twin), and B1's other output rows
               against the twin's on the same pair lists, at 640x360 / 20k
@@ -16,7 +23,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               same B1 planes and seeded cotangent, per pair and per gaussian,
               at both sizes, with and without the median depth, and a second
               B2 launch on the same inputs equal to the first bit for bit;
-  slice       the render CLI (`gsjax_torch.render.main`) on a 4-view
+  slice       the render CLI (`gsjax_torch.render.main`) on a 2-view
               1920x1080 COLMAP scene and a 100k-gaussian PLY made from a
               seed; B1's launches must equal the number of views;
   parity_sample  kernels B3 / B5 (the point query and its VJP) against their
@@ -99,7 +106,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               -w`, 40 steps from the reader's 100k random points, B2 on every
               step, B3 / B5 / B6 on the multi-view ones, the loss on fixed
               views lower after than before); the render CLI on
-              the ground-truth model with a 16-frame flythrough, depth and
+              the ground-truth model with an 8-frame flythrough, depth and
               `--video` (or the error naming cv2 where it does not import),
               B1 once per view; the metric CLI (test PSNR, LPIPS null with
               its status) and the port's LPIPS with random weights on the
@@ -112,7 +119,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               figure); the seconds of each stage on the host clock.
   viewer      the live viewers on the `train` scene (6 views at 1920x1080,
               100k points): the train CLI with `--ip --port` for 5 steps,
-              whose Python client requests 10 paused frames of view 0's
+              whose Python client requests 5 paused frames of view 0's
               camera before step 1 and one that releases the run (each
               equal bit for bit to `render()` with backend "cuda" of the
               starting model, whose colour holds to the twin's within the
@@ -123,9 +130,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (`SIBRBridge`) getting one frame, each from `serve_viewer` on a
               trainer of the same scene with a step after each frame, as the
               CLI's loop; the web viewer's local mode on a 100k-gaussian PLY:
-              20 POSTs at 1920x1088 (B1 once each, the bytes of one equal to
+              10 POSTs at 1920x1088 (B1 once each, the bytes of one equal to
               `render()`'s), latency median / p90 on the host clock beside
               `render()`'s CUDA-event time;
+  multi_gpu   two ranks sharing the card over gloo: two processes of
+              `chip_smoke.py --train-rank`, each the train CLI's `main` with
+              `--dist_coordinator/--dist_num_processes/--dist_process_id`,
+              train 5 steps from the `train` phase's step-40 checkpoint (the
+              multi-view terms on, one densify at step 44, equal then
+              histogram-balanced bands; started after the `train` phase,
+              they run beside the `mesh` and `slice` phases, as do two more
+              single-process runs), against the single-process CLI
+              from the same checkpoint, held to dryrun_multichip's bounds
+              after the first step: the loss within 5e-3 relative, the
+              densification statistics within 1e-2, |dxyz| q90 < 5e-4 and
+              max < 2e-2; after the later steps (two runs of one program
+              drift apart through float atomics) to the larger of those
+              bounds and 3x the single runs' spread: the loss at every
+              step, xyz and the statistics (relative L2) at step 43; the
+              alive counts after the densify within 1e-3; the ranks' states
+              bit-equal,
+              only rank 0's model directory written, B1 / B2 / B3 / B5 / B6
+              launched on the ranks; the step time on the host clock beside
+              the single process's (a parity run: one card, gloo through the
+              host); then in the same group every collective the port uses,
+              on CUDA tensors (`probe`), and `render_sharded` (equal and dual
+              bands) and `render_views_sharded` (3 views) bit-equal to
+              `render()` (`serve`);
   diagnostics the train CLI with GSJAX_NAN_PROBE=1 from a checkpoint of the
               same scene where one gaussian's DC colour is NaN: the probe's
               dump (gsjax's keys) and NAN_PROBE line, then the snapshot and
@@ -143,7 +174,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 Then the `kernels` line (seven entries: B6 appears twice, as `warp_sample`
 on the dense NCC and as `warp_sample_blocks` on the compacted one; each with
 its launches by path: render, train, train_compact, mesh, evaluate, viewer,
-diagnostics), the
+diagnostics, multi_gpu (summed over the two ranks); B1 and B2 also carry
+`band_ms`, their band launches' times by partition), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
@@ -323,7 +355,7 @@ FAR_ITERS = 0.5           # |mean evaluations far - near| (read 0.38; CPU emulat
 # never); the `train` phase densifies. The render CLI adds an
 # EVAL_TRAJ-frame flythrough. Readings below: H100, 60k blobs gaussians.
 EVAL_SIZE = 800
-EVAL_TRAIN, EVAL_TEST, EVAL_TRAJ = 24, 4, 16
+EVAL_TRAIN, EVAL_TEST, EVAL_TRAJ = 24, 4, 8
 EVAL_GAUSSIANS = 60_000
 EVAL_FOVX = 0.8
 EVAL_STEPS = 40
@@ -365,10 +397,10 @@ EVAL_F1 = 85.0
 # mode answers WEB_FRAMES POSTs at WEB_W x WEB_H (gsjax's snap floors to 32
 # pixels, so 1080 would give 1056) after two of warm-up.
 VIEWER_STEPS = 5
-VIEWER_PAUSED = 10
+VIEWER_PAUSED = 5
 VIEW_W, VIEW_H = 1920, 1080
 NATIVE_FRAMES = 4
-WEB_FRAMES = 20
+WEB_FRAMES = 10
 WEB_W, WEB_H = 1920, 1088
 # The diagnostics phase: the step time with the NaN probe on and off in
 # PROBE_TURNS turns each; gsjax's TensorBoard scalar tags (loop.py:781-798).
@@ -378,7 +410,13 @@ TB_TAGS = ("train_loss_patches/total_loss", "train_loss_patches/l1_loss",
            "train_loss_patches/geo_loss", "total_points", "iter_time", "test/psnr")
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's wall clock so far."""
+    if "phase" in obj:
+        obj = dict(obj, wall_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -663,7 +701,7 @@ def bench_pose(i, n):
     return r_w2c, tvec - r_w2c @ np.array([0.0, 0.0, 5.0])
 
 
-def phase_slice(dev, n_views=4, width=1920, height=1080, n=100_000):
+def phase_slice(dev, n_views=2, width=1920, height=1080, n=100_000):
     """The render CLI on a seeded scene; returns the kernel's launches."""
     import torch
 
@@ -778,7 +816,7 @@ def views_loss(trainer, mapped=False):
 
 
 def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
-                options=False):
+                options=False, keep=None):
     """The training CLI at full width, with gsjax's default multi-view
     lambdas; returns {kernel: launches}. With `options` (phase
     `train_options`) the CLI runs with GSJAX_NCC_COMPACT=1 and GOF's
@@ -791,7 +829,9 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
     views, rendered from the model at initialisation and after the last
     step. With GOF it is read through the appearance mapping of each view
     (the objective trained: its L1 on the mapped centre crop, SSIM on the
-    render); the raw render's loss is printed beside it."""
+    render); the raw render's loss is printed beside it. With `keep` (a
+    directory), the scene and the last checkpoint are moved there for the
+    `multi_gpu` phase."""
     import torch
 
     from gsjax_torch import train as train_cli
@@ -908,6 +948,11 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
     if options:
         check(extra["ckpt_app_keys"] > 0 and extra["ckpt_app_reloads"],
               "the checkpoint's appearance state does not reload")
+    if keep is not None:
+        shutil.rmtree(keep, ignore_errors=True)
+        os.makedirs(keep)
+        shutil.move(scene_dir, os.path.join(keep, "scene"))
+        shutil.move(os.path.join(model_dir, f"chkpnt{steps}.npz"), keep)
     shutil.rmtree(WORK, ignore_errors=True)
     return launches
 
@@ -2788,7 +2833,517 @@ def profile_step(step):
         return {"status": "not measured", "error": f"{type(e).__name__}: {e}"[:300]}
 
 
+# --- multi_gpu: tile rows over ranks ----------------------------------------
+
+def band_slices(full, rows, height, tile):
+    """The band-local rows of full-frame [C, H, W] planes for tile rows
+    `rows` (zero past the frame's height), as B1's band launch lays them."""
+    import torch
+
+    parts = []
+    for r in rows:
+        blk = full[:, r * tile:min((r + 1) * tile, height)]
+        if blk.shape[1] < tile:
+            blk = torch.cat([blk, blk.new_zeros(blk.shape[0], tile - blk.shape[1],
+                                                blk.shape[2])], 1)
+        parts.append(blk)
+    if not parts:
+        return full.new_zeros(full.shape[0], 0, full.shape[2])
+    return torch.cat(parts, 1).contiguous()
+
+
+def band_pair_positions(binning, tiles):
+    """Positions in a binning's list of the pairs of `tiles`, tile by tile."""
+    import torch
+
+    starts = binning.tile_start.long()[tiles]
+    counts = binning.tile_count.long()[tiles]
+    base = torch.repeat_interleave(starts - (torch.cumsum(counts, 0) - counts), counts)
+    return base + torch.arange(int(counts.sum()), device=starts.device)
+
+
+def phase_multi_gpu_bands(dev, width=1920, height=1080, n=100_000):
+    """B1 and B2 on tile-row lists against the full-frame launch at 1920x1080 /
+    100k: equal 2- and 4-band partitions and the dual partition of
+    `paired_balance_bounds` on the frame's own row histogram. For each band:
+    its banded binning equals the full binning on its tiles (lists entry for
+    entry, counts zero elsewhere), B1's band planes and B2's band pair
+    gradients equal the full launch's bit for bit (max abs error 0), and the
+    CUDA-event time of each band launch beside the full launch's."""
+    import torch
+
+    from gsjax_torch.ops.raster import RasterConfig, render_cuda, render_ref
+    from gsjax_torch.ops.raster.binning import bin_gaussians
+    from gsjax_torch.parallel import shard
+
+    cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
+    cam = bench_camera(width, height, dev)
+    _, prep, full, feats = stages(bench_gaussians(n), cam, cfg, dev)
+    tiles_x, tiles_y = cfg.grid(width, height)
+    bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+    tail = (width, height, cam.fx, cam.fy, bg, cfg)
+    lists = (feats, full.tile_start, full.tile_count)
+    planes = render_cuda.blend_fwd(*lists, *tail)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    grad = torch.zeros_like(planes)
+    grad[:8] = torch.randn((8, height, width), generator=gen, device=dev)
+    d_full = render_cuda.blend_bwd(*lists, planes, grad, *tail)
+    full_fwd_ms = event_ms(lambda: render_cuda.blend_fwd(*lists, *tail), reps=5)
+    full_bwd_ms = event_ms(lambda: render_cuda.blend_bwd(*lists, planes, grad, *tail), reps=5)
+    row_pairs = full.tile_count.reshape(tiles_y, tiles_x).sum(1).cpu().numpy()
+    rpm2 = 2 * -(-tiles_y // 2)
+    dual_b, dual_p = shard.paired_balance_bounds(row_pairs, 2, rpm2)
+    partitions = [("equal_2", shard.equal_band_bounds(tiles_y, 2), None),
+                  ("equal_4", shard.equal_band_bounds(tiles_y, 4), None),
+                  ("paired_dual_2", dual_b, dual_p)]
+    out = []
+    for name, bounds, pair in partitions:
+        nr = (len(bounds) - 1) // (2 if pair is not None else 1)
+        b, p = shard.check_partition(bounds, pair, tiles_y, nr)
+        bands = []
+        for r in range(nr):
+            rows = shard.band_rows(b, p, r)
+            lo, hi, lo2, hi2 = shard.band_intervals(b, p, r)
+            bb = bin_gaussians(prep, cfg, width, height, row_lo=lo, row_hi=hi,
+                               row_lo2=lo2, row_hi2=hi2)
+            tiles = torch.as_tensor((rows[:, None] * tiles_x + np.arange(tiles_x)).reshape(-1),
+                                    device=dev)
+            outside = torch.ones(tiles_x * tiles_y, dtype=torch.bool, device=dev)
+            outside[tiles] = False
+            pos_full = band_pair_positions(full, tiles)
+            pos_band = band_pair_positions(bb, tiles)
+            lists_equal = (torch.equal(bb.tile_count[tiles], full.tile_count[tiles])
+                           and int(bb.tile_count[outside].abs().sum()) == 0
+                           and torch.equal(bb.gauss_idx[pos_band], full.gauss_idx[pos_full]))
+            fb = render_ref.prepare_pairs(prep, bb)
+            blists = (fb, bb.tile_start, bb.tile_count)
+            pb = render_cuda.blend_fwd(*blists, *tail, tile_rows=rows)
+            want = band_slices(planes, rows, height, cfg.tile)
+            gb = band_slices(grad, rows, height, cfg.tile)
+            db = render_cuda.blend_bwd(*blists, pb, gb, *tail, tile_rows=rows)
+            fwd_err = float((pb - want).abs().max()) if pb.numel() else 0.0
+            bwd_err = float((db[pos_band] - d_full[pos_full]).abs().max()) \
+                if pos_band.numel() else 0.0
+            band = {"rows": [int(x) for x in rows], "pairs": bb.num_live,
+                    "lists_equal": bool(lists_equal),
+                    "b1_bitwise_equal": bool(torch.equal(pb, want)),
+                    "b1_max_abs_err": fwd_err,
+                    "b2_bitwise_equal": bool(torch.equal(db[pos_band], d_full[pos_full])),
+                    "b2_max_abs_err": bwd_err,
+                    "b1_ms": event_ms(lambda: render_cuda.blend_fwd(*blists, *tail,
+                                                                    tile_rows=rows), reps=5),
+                    "b2_ms": event_ms(lambda: render_cuda.blend_bwd(*blists, pb, gb, *tail,
+                                                                    tile_rows=rows), reps=5)}
+            bands.append(band)
+            check(band["lists_equal"], f"{name} band {r}: banded binning differs")
+            check(band["b1_bitwise_equal"] and band["b2_bitwise_equal"],
+                  f"{name} band {r}: B1 / B2 on the band differ from the full launch "
+                  f"({fwd_err}, {bwd_err})")
+        check(sum(x["pairs"] for x in bands) == full.num_live,
+              f"{name}: the bands' pairs do not add up to the frame's")
+        out.append({"partition": name, "bounds": [int(x) for x in bounds],
+                    "band_pair": None if pair is None else pair.tolist(),
+                    "b1_band_ms_sum": sum(x["b1_ms"] for x in bands),
+                    "b2_band_ms_sum": sum(x["b2_ms"] for x in bands), "bands": bands})
+    res = {"phase": "multi_gpu_bands", "width": width, "height": height, "gaussians": n,
+           "pairs": full.num_live, "row_pairs": [int(x) for x in row_pairs],
+           "b1_full_ms": full_fwd_ms, "b2_full_ms": full_bwd_ms,
+           "max_abs_err": max(max(b["b1_max_abs_err"], b["b2_max_abs_err"])
+                              for p in out for b in p["bands"]),
+           "partitions": out}
+    emit(res)
+    return res
+
+
+# the collectives of gsjax_torch.parallel, as each rank's probe calls them
+PROBE_COLLECTIVES = ("all_reduce_f32", "all_reduce_f64", "all_reduce_i64", "all_reduce_max_i64",
+                     "all_gather_f32", "all_gather_i32", "all_gather_i64", "barrier")
+
+
+def _probe_rank(rank):
+    """On a rank of a 2-rank gloo group sharing the card: each collective of
+    PROBE_COLLECTIVES on CUDA tensors -> {name: "ok" or the error}."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {"backend": dist.get_backend(), "device": str(dev)}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            res[name] = "ok"
+        except Exception as e:           # recorded, then checked by the caller
+            res[name] = f"{type(e).__name__}: {e}"[:200]
+
+    def reduce(dtype, op=dist.ReduceOp.SUM):
+        t = torch.full((1000,), rank + 1, dtype=dtype, device=dev)
+        dist.all_reduce(t, op=op)
+        want = 2 if op == dist.ReduceOp.MAX else 3
+        assert int(t[0]) == want and t.device == dev, (t[0], want)
+
+    def gather(dtype):
+        t = torch.full((1000,), rank, dtype=dtype, device=dev)
+        parts = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(parts, t)
+        assert [int(p[0]) for p in parts] == [0, 1]
+
+    attempt("all_reduce_f32", lambda: reduce(torch.float32))
+    attempt("all_reduce_f64", lambda: reduce(torch.float64))
+    attempt("all_reduce_i64", lambda: reduce(torch.int64))
+    attempt("all_reduce_max_i64", lambda: reduce(torch.int64, dist.ReduceOp.MAX))
+    attempt("all_gather_f32", lambda: gather(torch.float32))
+    attempt("all_gather_i32", lambda: gather(torch.int32))
+    attempt("all_gather_i64", lambda: gather(torch.int64))
+    attempt("barrier", dist.barrier)
+    return res
+
+
+def _serve_rank(rank, width, height, n, angles):
+    """On a rank of a 2-rank group on the card: `render_sharded` (equal rows,
+    then a dual partition) and `render_views_sharded` against `render()` on
+    this rank -> max abs errors, bit-equality and B1's launches."""
+    import torch
+
+    from gsjax_torch.model import gaussians as gm
+    from gsjax_torch.ops.raster import Camera, RasterConfig, render, render_cuda
+    from gsjax_torch.parallel import shard
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
+    params, aux = bench_params(bench_gaussians(n), dev)
+    bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+    def turn(a):                         # bench_camera turned by `a` about y
+        c, s = np.cos(a), np.sin(a)
+        r = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        return Camera.create(r, np.zeros(3, np.float32), 1.0, 0.66, width, height,
+                             device=dev)
+
+    cams = [turn(a) for a in angles]
+    scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
+
+    def single(cam):
+        with torch.no_grad():
+            return render(params.xyz, scales, params.rotation, opac, gm.get_features(params),
+                          cam, cfg, bg, alive=aux.alive)
+
+    res = {"rank": rank}
+    render_cuda.blend_fwd.launches = 0
+    _, tiles_y = cfg.grid(width, height)
+    dual = (np.array([0, 8, 15, 22, tiles_y]), np.array([[0, 3], [1, 2]]))
+    for name, bounds, pair in (("equal", None, None), ("paired_dual", *dual)):
+        one = shard.render_sharded(params, aux, cams[0], cfg, bg, row_bounds=bounds,
+                                   band_pair=pair)
+        ref = single(cams[0])
+        res[f"render_sharded_{name}"] = {
+            "color_equal": bool(torch.equal(one["color"], ref["render"])),
+            "depth_equal": bool(torch.equal(one["median_depth"], ref["median_depth"])),
+            "color_max_abs_err": float((one["color"] - ref["render"]).abs().max()),
+            "depth_max_abs_err": float((one["median_depth"] - ref["median_depth"]).abs().max())}
+    views = shard.render_views_sharded(params, aux, cams, cfg, bg)
+    eq_c = eq_d = True
+    err = 0.0
+    for i, cam in enumerate(cams):
+        ref = single(cam)
+        eq_c &= torch.equal(views["render"][i], ref["render"])
+        eq_d &= torch.equal(views["median_depth"][i], ref["median_depth"])
+        err = max(err, float((views["render"][i] - ref["render"]).abs().max()))
+    res["render_views_sharded"] = {"views": len(cams), "color_equal": bool(eq_c),
+                                   "depth_equal": bool(eq_d), "color_max_abs_err": err}
+    res["b1_launches"] = render_cuda.blend_fwd.launches
+    torch.cuda.synchronize()
+    return res
+
+
+MGPU_STEPS = 5           # two-rank steps from the train phase's last checkpoint
+MGPU_DENSIFY = 4         # densification interval: one densify within them (step 44)
+# dryrun_multichip's bounds (__graft_entry__.py:148-161), held as dryrun
+# holds them (its phase 1) after the first step from the shared state: the
+# loss, the densification statistics (max over gaussians, relative to the
+# largest) and xyz (q90 and max of |dxyz|).
+MGPU_LOSS_RTOL = 5e-3
+MGPU_STATS_RTOL = 1e-2
+MGPU_DXYZ_Q90 = 5e-4
+MGPU_DXYZ_MAX = 2e-2
+# Later steps drift apart as any two runs of one program do (float atomics
+# in the backward; NCC and geometric mask pixels and Adam's sign on
+# noise-level gradients flip with the drift), so each is held to the larger
+# of dryrun's bound and MGPU_SPREAD times the spread of single runs, which
+# the phase measures: the larger of MGPU_AGAIN runs' distances to the single
+# run that the ranks are held to. Held: the loss at every step (against the
+# single runs' largest loss distance), and at step 43 xyz and the
+# statistics. There the statistics are read as a relative L2 distance: their
+# max reads the one gaussian whose mask pixels flipped and swings 3e-3 to
+# 3e-2 between two single runs. After the densify, slots are not comparable
+# (a split that the drift flips moves every later child to another slot):
+# the alive counts within 1e-3, and the loss as above.
+MGPU_SPREAD = 3.0
+MGPU_AGAIN = 2           # single runs beside the ranks; the spread is the larger distance
+MGPU_ALIVE_RTOL = 1e-3
+MGPU_SNAPSHOTS = (41, 40 + MGPU_DENSIFY - 1)
+
+
+def state_arrays(trainer):
+    """The trainer's model, statistics and Adam state as numpy, in a fixed
+    order."""
+    from gsjax_torch.model import gaussians as gm
+
+    out = {f"params.{k}": getattr(trainer.params, k).detach().cpu().numpy()
+           for k in gm.PARAM_FIELDS}
+    out.update({f"aux.{k}": getattr(trainer.aux, k).cpu().numpy() for k in gm.AUX_FIELDS})
+    for name, moments in (("mu", trainer.adam.mu), ("nu", trainer.adam.nu)):
+        out.update({f"{name}.{k}": moments[k].cpu().numpy() for k in gm.PARAM_FIELDS})
+    return out
+
+
+def state_digest(arrays):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    return h.hexdigest()
+
+
+def timed_cli(argv, snapshot_at=()):
+    """The training CLI's `main` on `argv` with a synchronised host clock at
+    each step's end -> (trainer, per-step log; `step_s` from the second step
+    on: the first's clock would hold the set-up; and {iteration: {xyz,
+    grad_accum, denom, alive}} after each iteration of `snapshot_at`)."""
+    import torch
+
+    from gsjax_torch import train as train_cli
+
+    log, snap = [], {}
+
+    def on_step(trainer, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if trainer.iteration in snapshot_at:
+            snap[trainer.iteration] = dict(
+                xyz=trainer.params.xyz.detach().cpu().numpy(),
+                grad_accum=trainer.aux.grad_accum.cpu().numpy(),
+                denom=trainer.aux.denom.cpu().numpy(), alive=trainer.aux.alive.cpu().numpy())
+        log.append({"it": trainer.iteration, "loss": m["loss"], "t": now,
+                    "step_s": now - log[-1]["t"] if log else None,
+                    "attempts": m["attempts"], "near": m["near"],
+                    "partition": m.get("partition"), "densify": m.get("densify"),
+                    "alive": int(trainer.aux.alive.sum())})
+
+    return train_cli.main(argv, on_step=on_step), log, snap
+
+
+def train_rank(out_path, argv):
+    """`chip_smoke.py --train-rank OUT ARGV...`: one process of the multi_gpu
+    phase. The training CLI's `main` on ARGV; with `--dist_*` flags (a rank
+    of the group) then, in the same group, the collectives probe and the
+    serving checks. Writes the launches, the per-step log, the state's
+    digest and the checks' results to OUT and, on rank 0 or alone, the
+    snapshots' arrays to OUT.npz."""
+    import torch
+    import torch.distributed as dist
+
+    reset_launches()
+    trainer, log, snap = timed_cli(argv, snapshot_at=MGPU_SNAPSHOTS)
+    launches = read_launches()
+    grouped = dist.is_initialized()
+    rank = dist.get_rank() if grouped else 0
+    if rank == 0:
+        np.savez(out_path + ".npz", **{f"{it}.{k}": v for it, d in snap.items()
+                                       for k, v in d.items()})
+    res = {"rank": rank, "launches": launches, "per_step": log,
+           "digest": state_digest(state_arrays(trainer)),
+           "alive": int(trainer.aux.alive.sum())}
+    if grouped:
+        res["probe"] = _probe_rank(rank)
+        res["serve"] = _serve_rank(rank, 1920, 1080, 100_000, [0.0, 0.05, -0.05])
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    torch.cuda.synchronize()
+    if grouped:
+        dist.destroy_process_group()
+    return 0
+
+
+def mgpu_base(keep):
+    """The training CLI's flags of the multi_gpu phase: MGPU_STEPS steps from
+    the `train` phase's checkpoint in `keep`, one densify among them."""
+    last = 40 + MGPU_STEPS
+    return ["-s", os.path.join(keep, "scene"),
+            "--start_checkpoint", os.path.join(keep, "chkpnt40.npz"),
+            "--iterations", str(last), "--regularization_from_iter", "21",
+            "--densify_from_iter", "10", "--densification_interval", str(MGPU_DENSIFY),
+            "--densify_until_iter", str(last), "--save_iterations", str(last),
+            "--checkpoint_iterations", str(last), "--test_iterations", str(last),
+            "--ip", "", "--seed", "0"]
+
+
+def start_multi_gpu(dev, keep):
+    """Start the multi_gpu phase's processes, which run beside the `mesh` and
+    `slice` phases (the meshing CLI's Delaunay triangulation holds the host,
+    not the card): the two ranks (`chip_smoke.py --train-rank` with
+    `--dist_*`, sharing the card over gloo) and MGPU_AGAIN more
+    single-process runs from the same checkpoint, the measure of how far two
+    runs of one program drift apart. Returns (processes, their OUT paths)."""
+    from gsjax_torch.parallel.launch import free_port
+
+    base = mgpu_base(keep)
+    coord = f"127.0.0.1:{free_port()}"
+    outs = [os.path.join(keep, f"rank{r}.json") for r in range(2)]
+    argvs = [base + ["-m", os.path.join(keep, f"model_r{r}"), "--dist_coordinator", coord,
+                     "--dist_num_processes", "2", "--dist_process_id", str(r)]
+             for r in range(2)]
+    for i in range(MGPU_AGAIN):
+        outs.append(os.path.join(keep, f"single_again{i}.json"))
+        argvs.append(base + ["-m", os.path.join(keep, f"model_single_again{i}"),
+                             "--device", str(dev)])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                               "--train-rank", out, *argv], cwd=ROOT, env=env)
+             for out, argv in zip(outs, argvs)]
+    return procs, outs
+
+
+def stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def phase_multi_gpu(dev, keep, started):
+    """Two ranks sharing the card over gloo (`start_multi_gpu`: the training
+    CLI's `main` with `--dist_*`, then the collectives probe and the serving
+    checks) train MGPU_STEPS steps from the `train` phase's checkpoint (the
+    multi-view terms on, one densify among them); the single-process CLI
+    runs the same steps from the same checkpoint here, after the ranks have
+    ended, so that its step times are its own. Held to dryrun_multichip's
+    bounds after the first step and to the spread of two single runs after
+    the later ones (MGPU_SPREAD); the ranks' states bit-equal; only rank 0's
+    model directory written; B1 / B2 / B3 / B5 / B6 launched on the ranks.
+    Returns {kernel: launches} summed over the ranks."""
+    procs, outs = started
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        stop(procs)
+    check(all(p.returncode == 0 for p in procs),
+          f"multi_gpu exit codes (rank 0, rank 1, the single runs) "
+          f"{[p.returncode for p in procs]}")
+    ranks = [json.load(open(o)) for o in outs[:2]]
+    agains = [json.load(open(o)) for o in outs[2:]]
+    base = mgpu_base(keep)
+    t0 = time.perf_counter()
+    trainer, single_log, ref = timed_cli(
+        base + ["-m", os.path.join(keep, "model_single"), "--device", str(dev)],
+        snapshot_at=MGPU_SNAPSHOTS)
+    single_s = time.perf_counter() - t0
+
+    def snapshots(out):
+        npz = np.load(out + ".npz")
+        return {it: {k: npz[f"{it}.{k}"] for k in ref[it]} for it in MGPU_SNAPSHOTS}
+
+    r0 = ranks[0]
+
+    def distance(log_a, snap_a):
+        rel = [abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-8)
+               for a, b in zip(log_a, single_log)]
+        out = {"loss_rel": rel, "loss_max_rel": max(rel)}
+        for it in MGPU_SNAPSHOTS:
+            a, b = snap_a[it], ref[it]
+            dxyz = np.abs(a["xyz"] - b["xyz"])[b["alive"]]
+            ga = b["grad_accum"]
+            out[str(it)] = {
+                "grad_accum_max_rel": float(np.abs(a["grad_accum"] - ga).max()
+                                            / (np.abs(ga).max() + 1e-12)),
+                "grad_accum_l2_rel": float(np.linalg.norm(a["grad_accum"] - ga)
+                                           / (np.linalg.norm(ga) + 1e-12)),
+                "denom_equal": bool(np.array_equal(a["denom"], b["denom"])),
+                "dxyz_q90": float(np.quantile(dxyz, 0.9)), "dxyz_max": float(dxyz.max())}
+        return out
+
+    ranks_vs_single = distance(r0["per_step"], snapshots(outs[0]))
+    singles = [distance(a["per_step"], snapshots(o)) for a, o in zip(agains, outs[2:])]
+
+    def larger(a, b):
+        if isinstance(a, dict):
+            return {k: larger(a[k], b[k]) for k in a}
+        if isinstance(a, list):
+            return [max(x, y) for x, y in zip(a, b)]
+        return (a and b) if isinstance(a, bool) else max(a, b)
+
+    single_vs_single = singles[0]
+    for other in singles[1:]:
+        single_vs_single = larger(single_vs_single, other)
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    mv_steps = sum(x["near"] is not None for x in r0["per_step"])
+    d, s = ranks_vs_single, single_vs_single
+    later = str(MGPU_SNAPSHOTS[1])
+    bounds = {"loss_rel": max(MGPU_SPREAD * s["loss_max_rel"], MGPU_LOSS_RTOL),
+              "grad_accum_l2_rel": max(MGPU_SPREAD * s[later]["grad_accum_l2_rel"],
+                                       MGPU_STATS_RTOL),
+              "dxyz_q90": max(MGPU_SPREAD * s[later]["dxyz_q90"], MGPU_DXYZ_Q90),
+              "dxyz_max": max(MGPU_SPREAD * s[later]["dxyz_max"], MGPU_DXYZ_MAX)}
+    res = {"phase": "multi_gpu", "ranks": 2, "backend": r0["probe"]["backend"],
+           "steps": len(r0["per_step"]), "mv_steps": mv_steps, "single_s": single_s,
+           "step_s_ranks": [x["step_s"] for x in r0["per_step"][1:]],
+           "step_s_single": [x["step_s"] for x in single_log[1:]],
+           "step_s_note": "host clock; two ranks share one card, gloo goes through the "
+                          "host; the ranks ran beside the mesh and slice phases",
+           "loss_ranks": [x["loss"] for x in r0["per_step"]],
+           "loss_single": [x["loss"] for x in single_log],
+           "ranks_vs_single": d, "single_vs_single": s, "singles": singles,
+           "later_bounds": bounds,
+           "alive": [r["alive"] for r in ranks], "alive_single": int(trainer.aux.alive.sum()),
+           "densify": [x["densify"] for x in r0["per_step"] if x["densify"]],
+           "partitions": [x["partition"] for x in r0["per_step"]],
+           "ranks_bit_equal": ranks[0]["digest"] == ranks[1]["digest"],
+           "rank1_wrote": os.path.exists(os.path.join(keep, "model_r1")),
+           "launches": launches, "probe": [r["probe"] for r in ranks],
+           "serve": [r["serve"] for r in ranks]}
+    emit(res)
+    for r in ranks:
+        for name in PROBE_COLLECTIVES:
+            check(r["probe"][name] == "ok", f"gloo {name} on CUDA tensors: {r['probe'][name]}")
+        for k in ("render_sharded_equal", "render_sharded_paired_dual", "render_views_sharded"):
+            check(r["serve"][k]["color_equal"] and r["serve"][k]["depth_equal"],
+                  f"rank {r['rank']} {k} differs from render(): {r['serve'][k]}")
+    check(len(r0["per_step"]) == MGPU_STEPS == len(single_log)
+          and all(len(a["per_step"]) == MGPU_STEPS for a in agains), "steps run")
+    check(mv_steps >= 1 and len(res["densify"]) == 1,
+          f"{mv_steps} multi-view steps, {len(res['densify'])} densifications")
+    check(res["ranks_bit_equal"], "the two ranks' states differ")
+    check(not res["rank1_wrote"], "rank 1 wrote its model directory")
+    check(os.path.exists(os.path.join(keep, "model_r0", "point_cloud",
+                                      f"iteration_{40 + MGPU_STEPS}", "point_cloud.ply")),
+          "rank 0 wrote no PLY")
+    check(abs(res["alive"][0] - res["alive_single"]) <= MGPU_ALIVE_RTOL * res["alive_single"],
+          f"alive {res['alive'][0]} against the single run's {res['alive_single']}")
+    first = d[str(MGPU_SNAPSHOTS[0])]
+    check(d["loss_rel"][0] < MGPU_LOSS_RTOL, f"loss diverged after one step: {d['loss_rel']}")
+    check(first["grad_accum_max_rel"] < MGPU_STATS_RTOL and first["denom_equal"],
+          f"densification statistics diverged after one step: {first}")
+    check(first["dxyz_q90"] < MGPU_DXYZ_Q90 and first["dxyz_max"] < MGPU_DXYZ_MAX,
+          f"xyz diverged after one step: {first}")
+    check(max(d["loss_rel"]) <= bounds["loss_rel"],
+          f"loss diverged past the single runs' spread: {d['loss_rel']} ({bounds})")
+    for k in ("grad_accum_l2_rel", "dxyz_q90", "dxyz_max"):
+        check(d[later][k] <= bounds[k],
+              f"{k} at step {later} past the single runs' spread: {d[later]} ({bounds})")
+    for name in ("blend_fwd", "blend_bwd"):
+        check(launches[name] >= 2 * MGPU_STEPS, f"{name} launched {launches[name]} times")
+    for name in ("sample_fwd", "sample_bwd", "warp_sample"):
+        check(launches[name] == 2 * mv_steps, f"{name} launched {launches[name]} times")
+    shutil.rmtree(keep, ignore_errors=True)
+    return launches
+
+
 def main():
+    if sys.argv[1:2] == ["--train-rank"]:
+        return train_rank(sys.argv[2], sys.argv[3:])
     import torch
 
     if not torch.cuda.is_available():
@@ -2804,6 +3359,7 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     phase_build()
+    bands = phase_multi_gpu_bands(dev)
     phase_parity(640, 360, 20_000, dev)
     full_err, twin_ms = phase_parity(1920, 1080, 100_000, dev)
     bwd_err = {}
@@ -2825,9 +3381,15 @@ def main():
     b4_ms, b4_bound = phase_timing_mesh(1920, 1080, *int_query, tile_query)
     phase_integrate_profile(*int_query, b4_bound, b4_ms, tile_query)
     del int_query, tile_query
-    mesh_launches = phase_mesh(dev)
-    serve_launches = phase_slice(dev)
-    train_launches = phase_train(dev)
+    keep = os.path.join(ROOT, "build", "chip_smoke_multi_gpu")
+    train_launches = phase_train(dev, keep=keep)
+    started = start_multi_gpu(dev, keep)
+    try:
+        mesh_launches = phase_mesh(dev)
+        serve_launches = phase_slice(dev)
+        mgpu_launches = phase_multi_gpu(dev, keep, started)
+    finally:
+        stop(started[0])
     compact_launches = phase_train(dev, options=True)
     eval_launches = phase_evaluate(dev)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2842,7 +3404,14 @@ def main():
         return {"render": render, "train": train_launches[name],
                 "train_compact": compact_launches[name], "mesh": mesh_launches[name],
                 "evaluate": eval_launches[name], "viewer": viewer_launches[name],
-                "diagnostics": diag_launches[name]}
+                "diagnostics": diag_launches[name], "multi_gpu": mgpu_launches[name]}
+
+    def band_ms(kernel):
+        """B1 / B2 on tile-row lists: each partition's band times and sum."""
+        return {p["partition"]: {"bands": [b[f"{kernel}_ms"] for b in p["bands"]],
+                                 "sum": p[f"{kernel}_band_ms_sum"]}
+                for p in bands["partitions"]} | {"full": bands[f"{kernel}_full_ms"],
+                                                  "max_abs_err": bands["max_abs_err"]}
 
     def entry(name, replaces, max_err, ms, plain_ms, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"gsjax_torch/csrc/{name}.cu",
@@ -2859,14 +3428,14 @@ def main():
          "launches_by_path": by_path("blend_fwd", serve_launches),
          "max_abs_err": max(full_err["color_max_abs_err"], full_err["alpha_max_abs_err"]),
          "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": bound["bound_ms"],
-         "bound_by": bound["bound_by"], "library_ms": None},
+         "bound_by": bound["bound_by"], "library_ms": None, "band_ms": band_ms("b1")},
         {"name": "blend_bwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_bwd.cu",
          "replaces": "gsjax/ops/raster/render_pallas.py:806",
          "launches": train_launches["blend_bwd"],
          "launches_by_path": by_path("blend_bwd"),
          "max_abs_err": max(e["pair_max_err"] for e in bwd_err.values()),
          "ms": b2_ms, "plain_ms": bwd_twin_ms, "bound_ms": b2_bound["bound_ms"],
-         "bound_by": b2_bound["bound_by"], "library_ms": None},
+         "bound_by": b2_bound["bound_by"], "library_ms": None, "band_ms": band_ms("b2")},
         entry("sample_fwd", "gsjax/ops/raster/sample_pallas.py:79",
               sample_err["m_t_max_abs_err"], mv_ms["b3_ms"], sample_err["twin_fwd_ms"]),
         {"name": "integrate_fwd", "route": "cuda", "source": "gsjax_torch/csrc/integrate_fwd.cu",

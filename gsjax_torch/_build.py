@@ -35,8 +35,9 @@ _L = ctypes.c_longlong
 # one source share its library
 KERNELS = {
     "blend_fwd": ("csrc/blend_fwd.cu", "gsjax_blend_fwd", [
-        _P, _P, _P, _P, _P, _P,        # feats, tile_start, tile_count, bg, out,
-                                       # counters
+        _P, _P, _P, _P, _I,            # feats, tile_start, tile_count,
+                                       # tile_rows, n_rows
+        _P, _P, _P,                    # bg, out, counters
         _I, _I, _I, _I, _I,            # width, height, tiles_x, tiles_y, tile
         _F, _F,                        # fx, fy
         _I, _I, _I,                    # max_per_tile, require_depth, slots
@@ -45,8 +46,9 @@ KERNELS = {
         _P,                            # cudaStream_t
     ]),
     "blend_bwd": ("csrc/blend_bwd.cu", "gsjax_blend_bwd", [
-        _P, _P, _P, _P, _P, _P, _P,    # feats, tile_start, tile_count, planes,
-                                       # grad, bg, d_feats
+        _P, _P, _P, _P, _I,            # feats, tile_start, tile_count,
+                                       # tile_rows, n_rows
+        _P, _P, _P, _P,                # planes, grad, bg, d_feats
         _P,                            # counters
         _I, _I, _I, _I, _I,            # width, height, tiles_x, tiles_y, tile
         _F, _F,                        # fx, fy

@@ -48,6 +48,13 @@
 //     sums in a fixed order once a window (bwd_common.cuh). The result is the
 //     same bit for bit from run to run.
 // The wrapper passes the binning tile; the kernel takes 32 only.
+//
+// A tile-row list (`tile_rows`, `n_rows`; the TPU kernel's tile subset,
+// `_bwd_call`'s tile ids) runs only those rows of tiles: block row r takes
+// tile row tile_rows[r] and reads band-local planes and cotangent
+// [16, n_rows * 32, W] (blend_fwd.cu's band output). Each listed tile is the
+// same work on the same list as in the full-frame launch (nullptr), so it
+// writes the same bits.
 
 #include <cuda_runtime.h>
 
@@ -65,12 +72,13 @@ struct BwdParams {
   const float* feats;       // [K, 16] pair payload, tile-major, front to back
   const int* tile_start;    // [T] first pair of each tile
   const int* tile_count;    // [T] pairs of each tile (clamped here)
-  const float* planes;      // [16, H, W] forward output
-  const float* grad;        // [16, H, W] its cotangent (rows 0-7 read)
+  const int* tile_rows;     // [n_rows] tile rows to run, or nullptr: all
+  const float* planes;      // [16, out_height, W] forward output
+  const float* grad;        // [16, out_height, W] its cotangent (rows 0-7 read)
   const float* bg;          // [3]
   float* d_feats;           // [K, 16], zeroed by the caller
   unsigned long long* counters;   // bwd::Counter, or nullptr
-  int width, height, tiles_x, max_per_tile;
+  int width, height, out_height, tiles_x, max_per_tile;
   float fx, fy, alpha_clamp, alpha_min;
 };
 
@@ -83,13 +91,14 @@ struct Pixel {
   int n;
 };
 
+// pyi: the frame's pixel row; oyi: its row in the planes
 template <bool DEPTH>
 __device__ __forceinline__ Pixel load_pixel(const BwdParams& p, int pxi, int pyi,
-                                            int count) {
+                                            int oyi, int count) {
   Pixel r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0};
   if (pxi >= p.width || pyi >= p.height) return r;
-  const size_t hw = static_cast<size_t>(p.height) * p.width;
-  const size_t o = static_cast<size_t>(pyi) * p.width + pxi;
+  const size_t hw = static_cast<size_t>(p.out_height) * p.width;
+  const size_t o = static_cast<size_t>(oyi) * p.width + pxi;
   const float* pl = p.planes + o;
   const float* g = p.grad + o;
   const float t_final = pl[10 * hw];
@@ -195,18 +204,21 @@ blend_bwd_kernel(const BwdParams p) {
   prof.start();
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tile_id = blockIdx.y * p.tiles_x + blockIdx.x;
+  const int ty = p.tile_rows != nullptr ? p.tile_rows[blockIdx.y] : blockIdx.y;
+  const int tile_id = ty * p.tiles_x + blockIdx.x;
   const int start = p.tile_start[tile_id];
   const int count = min(p.tile_count[tile_id], p.max_per_tile);
   // the quad's top-left pixel: warp w's patch, then the lane's quad in it
   const int x0 = blockIdx.x * kTile + (warp & 1) * 16 + (lane & 7) * 2;
-  const int y0 = blockIdx.y * kTile + (warp >> 1) * 8 + (lane >> 3) * 2;
+  const int y_in = (warp >> 1) * 8 + (lane >> 3) * 2;
+  const int y0 = ty * kTile + y_in;                   // the frame's row
+  const int oy0 = blockIdx.y * kTile + y_in;          // the planes' row
 
   Pixel px[kQuad];
   int my_n = 0;
 #pragma unroll
   for (int k = 0; k < kQuad; ++k) {
-    px[k] = load_pixel<DEPTH>(p, x0 + (k & 1), y0 + (k >> 1), count);
+    px[k] = load_pixel<DEPTH>(p, x0 + (k & 1), y0 + (k >> 1), oy0 + (k >> 1), count);
     my_n = max(my_n, px[k].n);
   }
   const int warp_n = __reduce_max_sync(bwd::kAll, my_n);
@@ -280,10 +292,13 @@ int launch(const BwdParams& p, dim3 grid, cudaStream_t stream) {
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched), or
+// Launch on `stream` over the `n_rows` tile rows of `tile_rows` (planes and
+// cotangent [16, n_rows * 32, W]) or, with tile_rows = nullptr, over the
+// whole frame ([16, H, W]); returns cudaGetLastError() (0 = launched), or
 // cudaErrorInvalidValue for a tile other than 32.
 extern "C" int gsjax_blend_bwd(const float* feats, const int* tile_start,
-                               const int* tile_count, const float* planes,
+                               const int* tile_count, const int* tile_rows,
+                               int n_rows, const float* planes,
                                const float* grad, const float* bg,
                                float* d_feats, void* counters, int width,
                                int height, int tiles_x, int tiles_y, int tile,
@@ -291,10 +306,13 @@ extern "C" int gsjax_blend_bwd(const float* feats, const int* tile_start,
                                int require_depth, float alpha_clamp,
                                float alpha_min, void* stream) {
   if (tile != kTile) return static_cast<int>(cudaErrorInvalidValue);
-  const BwdParams p{feats, tile_start, tile_count, planes, grad, bg, d_feats,
-                    static_cast<unsigned long long*>(counters), width, height,
-                    tiles_x, max_per_tile, fx, fy, alpha_clamp, alpha_min};
-  const dim3 grid(tiles_x, tiles_y);
+  const int rows = tile_rows != nullptr ? n_rows : tiles_y;
+  const int out_height = tile_rows != nullptr ? n_rows * kTile : height;
+  const BwdParams p{feats, tile_start, tile_count, tile_rows, planes, grad, bg,
+                    d_feats, static_cast<unsigned long long*>(counters), width,
+                    height, out_height, tiles_x, max_per_tile, fx, fy,
+                    alpha_clamp, alpha_min};
+  const dim3 grid(tiles_x, rows);
   const auto st = static_cast<cudaStream_t>(stream);
   return require_depth ? launch<true>(p, grid, st) : launch<false>(p, grid, st);
 }

@@ -14,6 +14,15 @@
 // z-depth, 8 n_contrib, 9 md_init, 10 T_final, 11 in_range, 12 dlogT/dt at
 // the root, 13-15 zero.
 //
+// A tile-row list (`tile_rows`, `n_rows`; the TPU kernel's tile subset,
+// blend_pallas's `tile_ids`) blends only those rows of tiles, a band of the
+// frame on the multi-device path: block row r takes tile row tile_rows[r]
+// and writes band-local planes [16, n_rows * tile, W], local row
+// r * tile + y of tile row tile_rows[r]'s pixel row y. Pixels past the
+// frame's height are not written. Each listed tile is the same work on the
+// same list as in the full-frame launch (nullptr), so it gives the same
+// bits.
+//
 // What bounds it on an H100: the median search, and there the special-
 // function rate and barriers, not bytes. Each pair is read once from device
 // memory per 16x16 block (64 bytes) and evaluated against every pixel of the
@@ -62,10 +71,11 @@ struct Params {
   const float* feats;       // [K, 16] pair payload, tile-major, front to back
   const int* tile_start;    // [T] first pair of each tile
   const int* tile_count;    // [T] pairs of each tile (clamped here)
+  const int* tile_rows;     // [n_rows] tile rows to blend, or nullptr: all
   const float* bg;          // [3]
-  float* out;               // [16, H, W]
+  float* out;               // [16, out_height, W]
   int* counters;            // median.cuh:Counter, or nullptr
-  int width, height, tiles_x, tile, max_per_tile, slots;
+  int width, height, out_height, tiles_x, tile, max_per_tile, slots;
   float fx, fy, alpha_clamp, alpha_min, t_min, sample_range, min_transmittance;
 };
 
@@ -80,11 +90,15 @@ blend_fwd_kernel(const Params p) {
   const long long t_start = kDepth && p.counters != nullptr ? clock64() : 0;
 
   const int nsub = p.tile / kSide;
-  const int tile_id = (blockIdx.y / nsub) * p.tiles_x + blockIdx.x / nsub;
+  const int band_row = blockIdx.y / nsub;
+  const int ty = p.tile_rows != nullptr ? p.tile_rows[band_row] : band_row;
+  const int tile_id = ty * p.tiles_x + blockIdx.x / nsub;
   const int start = p.tile_start[tile_id];
   const int count = min(p.tile_count[tile_id], p.max_per_tile);
   const int pxi = blockIdx.x * kSide + threadIdx.x;
-  const int pyi = blockIdx.y * kSide + threadIdx.y;
+  const int sub_y = (blockIdx.y % nsub) * kSide + threadIdx.y;
+  const int pyi = ty * p.tile + sub_y;               // the frame's pixel row
+  const int oyi = band_row * p.tile + sub_y;         // the output's row
   const bool inside = pxi < p.width && pyi < p.height;
   const float px = static_cast<float>(pxi);
   const float py = static_cast<float>(pyi);
@@ -140,8 +154,8 @@ blend_fwd_kernel(const Params p) {
   }
   if (!inside) return;
 
-  const size_t hw = static_cast<size_t>(p.height) * p.width;
-  float* o = p.out + static_cast<size_t>(pyi) * p.width + pxi;
+  const size_t hw = static_cast<size_t>(p.out_height) * p.width;
+  float* o = p.out + static_cast<size_t>(oyi) * p.width + pxi;
   const bool has = last >= 0;
   const float inv_om = 1.f / fmaxf(1.f - T, 1e-12f);
   o[0 * hw] = c0 + T * p.bg[0];
@@ -169,9 +183,12 @@ blend_fwd_kernel(const Params p) {
 
 // Launch on `stream` with `slots` median slots per pixel (0: every search
 // re-walks) and `counters` (nullptr, or kCounters zeroed ints the search
-// adds to); returns the CUDA error (0 = launched).
+// adds to), over the `n_rows` tile rows of `tile_rows` into [16, n_rows *
+// tile, W] planes, or with tile_rows = nullptr over the whole frame into
+// [16, H, W]; returns the CUDA error (0 = launched).
 extern "C" int gsjax_blend_fwd(const float* feats, const int* tile_start,
-                               const int* tile_count, const float* bg,
+                               const int* tile_count, const int* tile_rows,
+                               int n_rows, const float* bg,
                                float* out, int* counters, int width,
                                int height, int tiles_x, int tiles_y, int tile,
                                float fx, float fy, int max_per_tile,
@@ -179,12 +196,14 @@ extern "C" int gsjax_blend_fwd(const float* feats, const int* tile_start,
                                float alpha_min, float t_min,
                                float sample_range, float min_transmittance,
                                void* stream) {
-  const Params p{feats, tile_start, tile_count, bg, out, counters,
-                 width, height, tiles_x, tile, max_per_tile, slots,
+  const int rows = tile_rows != nullptr ? n_rows : tiles_y;
+  const int out_height = tile_rows != nullptr ? n_rows * tile : height;
+  const Params p{feats, tile_start, tile_count, tile_rows, bg, out, counters,
+                 width, height, out_height, tiles_x, tile, max_per_tile, slots,
                  fx, fy, alpha_clamp, alpha_min, t_min, sample_range,
                  min_transmittance};
   const int nsub = tile / kSide;
-  const dim3 grid(tiles_x * nsub, tiles_y * nsub);
+  const dim3 grid(tiles_x * nsub, rows * nsub);
   const dim3 block(kSide, kSide);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!require_depth) {

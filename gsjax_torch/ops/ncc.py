@@ -28,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gsjax_torch.core import rowwise
 from gsjax_torch.ops import warp_sample as ws
 
 BLK = 16              # pixel block side of the compacted NCC
@@ -57,8 +58,13 @@ def _homography(u, v, depth, normal, rel_rot, rel_t, intr_r, intr_n):
     k_n = torch.tensor([[fx_n, 0, cx_n], [0, fy_n, cy_n], [0, 0, 1.0]], device=dev)
     k_r_inv = torch.tensor([[1 / fx_r, 0, -cx_r / fx_r],
                             [0, 1 / fy_r, -cy_r / fy_r], [0, 0, 1.0]], device=dev)
-    hmat = torch.einsum("ij,hwjk,kl->hwil", k_n, hn_mat, k_r_inv)
-    h_uc = torch.einsum("hwij,hwj->hwi", hmat, torch.stack([u, v, torch.ones_like(u)], -1))
+    # rowwise in float64, rounded once: a band of pixels gets the whole
+    # frame's bits, and the chain's float32 rounding stays below the NCC's
+    # sensitivity to the homography (module docstring of tests/test_torch_ncc.py)
+    d = torch.float64
+    hmat = rowwise.matmul3(rowwise.matmul3(k_n.to(d), hn_mat.to(d)), k_r_inv.to(d))
+    h_uc = rowwise.matvec3(hmat, torch.stack([u, v, torch.ones_like(u)], -1).to(d))
+    hmat, h_uc = hmat.float(), h_uc.float()
     return hmat, h_uc
 
 
@@ -81,14 +87,15 @@ def _project_taps(hmat, h_uc, radius: int, k_dim: int):
 
 
 def neighbour_taps(depth: torch.Tensor, normal: torch.Tensor, rel_rot: torch.Tensor,
-                   rel_t: torch.Tensor, intr_r, intr_n, radius: int = 3):
-    """Positions (un, vn) [K,H,W] in the neighbour image of every patch tap of
-    every reference pixel, K = (2 radius + 1)^2 in gsjax's tap order.
+                   rel_t: torch.Tensor, intr_r, intr_n, radius: int = 3,
+                   row_offset: int = 0):
+    """Positions (un, vn) [K,Hs,W] in the neighbour image of every patch tap
+    of every reference pixel, K = (2 radius + 1)^2 in gsjax's tap order.
     Arguments as `warp_patch_ncc`."""
     h, w = depth.shape
     dev = depth.device
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    v = (torch.arange(h, device=dev) + row_offset).to(torch.float32)[:, None].expand(h, w)
     hmat, h_uc = _homography(u, v, depth, normal, rel_rot, rel_t, intr_r, intr_n)
     return _project_taps(hmat, h_uc, radius, k_dim=0)
 
@@ -124,38 +131,45 @@ def _ncc2(c_r_taps, c_n_taps):
 
 def warp_patch_ncc(depth: torch.Tensor, normal: torch.Tensor, gray_r: torch.Tensor,
                    gray_n: torch.Tensor, rel_rot: torch.Tensor, rel_t: torch.Tensor,
-                   intr_r, intr_n, radius: int = 3, sample_fn=ws.warp_sample):
-    """Dense NCC^2 over the reference image.
+                   intr_r, intr_n, radius: int = 3, sample_fn=ws.warp_sample,
+                   row_offset: int = 0):
+    """Dense NCC^2 over the reference image, or over a band of its rows.
 
     Args:
-      depth: [H,W] z-depth in the reference view; normal: [H,W,3]
-        camera-space unit normals (reference view).
-      gray_r / gray_n: [H,W] / [Hn,Wn] luma images.
+      depth: [Hs,W] z-depth in the reference view; normal: [Hs,W,3]
+        camera-space unit normals (reference view): the frame's rows
+        row_offset .. row_offset + Hs (gsjax ncc.py:72-99; the whole frame
+        by default).
+      gray_r / gray_n: [H,W] / [Hn,Wn] luma images, whole frames (the patch
+        taps read across the band's edges).
       rel_rot: [3,3] reference-camera -> neighbour-camera rotation; rel_t: [3].
       intr_r / intr_n: (fx, fy, cx, cy) as floats.
       sample_fn: the neighbour-tap sampler, `warp_sample.warp_sample` (the
         kernel on CUDA tensors, the twin on the CPU) or its twin
         `warp_sample.bilinear_ref` on any device.
 
-    Returns (ncc [H,W] squared correlation in [0,1], valid [H,W] bool)."""
-    h, w = depth.shape
+    Returns (ncc [Hs,W] squared correlation in [0,1], valid [Hs,W] bool)."""
+    hs, w = depth.shape
+    h = gray_r.shape[0]
     hn, wn = gray_n.shape
     rf = radius * 0.5
     offs = _offsets(radius)
-    un_k, vn_k = neighbour_taps(depth, normal, rel_rot, rel_t, intr_r, intr_n, radius)
+    un_k, vn_k = neighbour_taps(depth, normal, rel_rot, rel_t, intr_r, intr_n, radius,
+                                row_offset)
 
     # reference taps: a fixed blend of integer-shifted copies of the image
     pad = int(math.ceil(rf)) + 1
     gr_pad = F.pad(gray_r[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+    r0 = pad + row_offset
 
     def c_r_tap(du, dv):
         out = 0.0
         for iv, iu, wt in _ref_tap_weights(du, dv):
-            out = out + wt * gr_pad[pad + iv:pad + iv + h, pad + iu:pad + iu + w]
+            out = out + wt * gr_pad[r0 + iv:r0 + iv + hs, pad + iu:pad + iu + w]
         return out
 
     u = torch.arange(w, device=depth.device)[None, :]
-    v = torch.arange(h, device=depth.device)[:, None]
+    v = torch.arange(hs, device=depth.device)[:, None] + row_offset
     all_inside = (u - rf > 0) & (u + rf < w - 1) & (v - rf > 0) & (v + rf < h - 1)
     inside_k = (un_k - rf > 0) & (un_k + rf < wn - 1) & (vn_k - rf > 0) & (vn_k + rf < hn - 1)
     all_inside = all_inside & inside_k.all(0)

@@ -17,8 +17,15 @@ boundary inside static-capacity buffers (for Mosaic DMA windows); the port
 keeps one dense [K] list of live pairs sized by the real count. Tile t's
 list is `gauss_idx[tile_start[t] : tile_start[t] + min(tile_count[t],
 max_per_tile)]`: the blend clamps each count at `max_per_tile` as gsjax's
-kernels do (binning.py:260-265). Row-band binning (the multi-device path)
-is left for the multi-GPU slice.
+kernels do (binning.py:260-265).
+
+Row bands (`row_lo` / `row_hi`, and a second band `row_lo2` / `row_hi2`
+at or after the first; binning.py:53-57, :93-110): each gaussian's tile rect
+is clipped to the band or bands before enumeration, so a rank of the
+multi-device path (`gsjax_torch.parallel`) enumerates, culls and sorts only
+its own pairs, and tiles outside the bands report count 0. A tile's list is
+the full binning's list for that tile, entry for entry: its pairs keep their
+gaussian-major order and their keys.
 
 `continuous_coords` (binning.py:73-78): the blend evaluates pairs at pixel
 centres, so the cull's box spans [tile*t, tile*t + t - 1]; the point queries
@@ -48,20 +55,46 @@ class Binning:
 
 
 def bin_gaussians(prep: Preprocessed, cfg: RasterConfig, width: int,
-                  height: int, continuous_coords: bool = False) -> Binning:
+                  height: int, continuous_coords: bool = False,
+                  row_lo: int | None = None, row_hi: int | None = None,
+                  row_lo2: int | None = None, row_hi2: int | None = None) -> Binning:
+    """Bin the gaussians of `prep` into per-tile lists; with `row_lo` /
+    `row_hi` (and `row_lo2` / `row_hi2`, a second band starting at or after
+    row_hi) only the tile rows [row_lo, row_hi) (and [row_lo2, row_hi2))."""
     tiles_x, tiles_y = cfg.grid(width, height)
     num_tiles = tiles_x * tiles_y
     dev = prep.depth.device
     touched = prep.tiles_touched.to(torch.int64)
     n = touched.shape[0]
+    y0 = prep.rect_min[:, 1].to(torch.int64)
+    y1 = y0 + prep.rect_wh[:, 1].to(torch.int64)
+    rect_w = prep.rect_wh[:, 0].to(torch.int64).clamp_min(1)
+    rows1 = (y1 - y0).clamp_min(0)
+    y0b = torch.zeros_like(y0)
+    if row_lo is not None:
+        if row_lo2 is not None and row_lo2 < row_hi:
+            raise ValueError(f"second band [{row_lo2}, {row_hi2}) starts before "
+                             f"the first ends ({row_hi})")
+        # clip each rect to the band(s); culled gaussians keep touched == 0
+        y0 = y0.clamp(row_lo, row_hi)
+        rows1 = (y1.clamp(row_lo, row_hi) - y0).clamp_min(0)
+        rows2 = torch.zeros_like(rows1)
+        if row_lo2 is not None:
+            y0b = prep.rect_min[:, 1].to(torch.int64).clamp(row_lo2, row_hi2)
+            rows2 = (y1.clamp(row_lo2, row_hi2) - y0b).clamp_min(0)
+        touched = torch.where(touched > 0, rect_w * (rows1 + rows2),
+                              torch.zeros_like(touched))
 
-    # pair p -> (source gaussian g, rank j inside g's tile rect)
+    # pair p -> (source gaussian g, rank j inside g's (clipped) tile rect);
+    # the rank walks the first band's rows, then the second's
     g = torch.repeat_interleave(torch.arange(n, device=dev), touched)
     total = g.shape[0]
     starts_exc = torch.cumsum(touched, 0) - touched
     j = torch.arange(total, device=dev) - starts_exc[g]
-    w = prep.rect_wh[g, 0].to(torch.int64).clamp_min(1)
-    ty = prep.rect_min[g, 1].to(torch.int64) + j // w
+    w = rect_w[g]
+    jr = j // w
+    r1 = rows1[g]
+    ty = torch.where(jr < r1, y0[g] + jr, y0b[g] + (jr - r1))
     tx = prep.rect_min[g, 0].to(torch.int64) + j % w
     tile = ty * tiles_x + tx
 

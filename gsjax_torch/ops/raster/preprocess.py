@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from gsjax_torch.core import quaternion, sg, sh
+from gsjax_torch.core import quaternion, rowwise, sg, sh
 from gsjax_torch.core.transforms import ndc_to_pix
 from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.ops.raster.config import RasterConfig
@@ -68,13 +68,14 @@ def preprocess(means3d: torch.Tensor,
     R_wc = wv[:3, :3]
     full = camera.full_proj
 
-    # --- view/clip transforms ---------------------------------------------
-    p_view = means3d @ R_wc.T + wv[:3, 3]
+    # --- view/clip transforms (rowwise: a shard's rows give the full run's
+    # bits, as the multi-device step's sharded preprocess needs) ------------
+    p_view = rowwise.affine(means3d, R_wc, wv[:3, 3])
     tz = p_view[:, 2]
     in_front = tz > cfg.near_plane
 
-    p_hom = means3d @ full[:3, :3].T + full[:3, 3]
-    p_w = means3d @ full[3, :3] + full[3, 3]
+    p_hom = rowwise.affine(means3d, full[:3, :3], full[:3, 3])
+    p_w = rowwise.affine(means3d, full[3:4, :3], full[3:4, 3])[:, 0]
     p_proj = p_hom / (p_w[:, None] + 1e-7)
 
     tz_safe = torch.where(in_front, tz, torch.ones_like(tz))

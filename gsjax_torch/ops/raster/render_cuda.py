@@ -10,6 +10,12 @@ twin (`render_ref.blend_planes`, `render_ref.blend_bwd_planes`); for CUDA
 tensors each launches its kernel or raises. `blend_fwd.launches` and
 `blend_bwd.launches` count kernel launches.
 
+Both take an optional tile-row list `tile_rows` (the TPU kernels' tile
+subset): they then run only those rows of tiles, a band of the frame on the
+multi-device path (`gsjax_torch.parallel`), on band-local planes
+[16, len(tile_rows) * tile, W] whose rows follow the list (`band_height`).
+On every listed tile the band launch gives the full-frame launch's bits.
+
 B1's median search (`csrc/median.cuh`, shared with B3) keeps each pixel's
 varying pairs in `slots` slots of shared memory and re-walks the list
 for a pixel whose set does not fit; `slots=0` sends every pixel down that
@@ -72,6 +78,27 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def band_height(tile_rows, height: int, cfg: RasterConfig) -> int:
+    """Rows of the planes a blend writes: the frame's height, or
+    len(tile_rows) tiles for a tile-row list."""
+    return height if tile_rows is None else len(tile_rows) * cfg.tile
+
+
+def rows_tensor(tile_rows, width: int, height: int, cfg: RasterConfig,
+                device) -> torch.Tensor | None:
+    """A tile-row list (a sequence of ints) checked against the frame's
+    grid -> int32 tensor on `device`; None stays None (every row)."""
+    if tile_rows is None:
+        return None
+    if torch.is_tensor(tile_rows):
+        tile_rows = tile_rows.tolist()
+    rows = [int(r) for r in tile_rows]
+    _, tiles_y = cfg.grid(width, height)
+    if any(not 0 <= r < tiles_y for r in rows):
+        raise ValueError(f"tile rows {rows} outside the frame's {tiles_y} rows")
+    return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 def _check_launch(name, feats_pairs, tile_start, tile_count, bg, width, height,
@@ -202,28 +229,35 @@ def search_stats(counters: torch.Tensor) -> dict:
 def blend_fwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
               tile_count: torch.Tensor, width: int, height: int, fx: float,
               fy: float, bg: torch.Tensor, cfg: RasterConfig, slots: int = SLOTS,
-              counters: torch.Tensor | None = None) -> torch.Tensor:
+              counters: torch.Tensor | None = None, tile_rows=None) -> torch.Tensor:
     """Blend every tile of a frame -> [16, H, W] float32 planes.
 
     feats_pairs [K, 16] float32 (render_ref.prepare_pairs), tile_start /
     tile_count [T] int32, bg [3] float32, all on one device. `slots`: the
     median search's slots per pixel; `counters`: None, or a
-    `search_counters` buffer the kernel fills."""
+    `search_counters` buffer the kernel fills; `tile_rows`: None, or the
+    tile rows to blend (-> [16, len(tile_rows) * tile, W], zero past the
+    frame's height)."""
     ctr = check_search_args("blend_fwd", slots, counters, feats_pairs.device)
     if feats_pairs.device.type == "cpu":
         return render_ref.blend_planes(feats_pairs, tile_start, tile_count,
-                                       width, height, fx, fy, bg, cfg)
+                                       width, height, fx, fy, bg, cfg,
+                                       tile_rows=tile_rows)
     tiles_x, tiles_y = _check_launch("blend_fwd", feats_pairs, tile_start,
                                      tile_count, bg, width, height, cfg)
     dev = feats_pairs.device
-    out = torch.empty(render_ref.N_PLANES, height, width, device=dev)
-    if tiles_x * tiles_y == 0:
+    rows = rows_tensor(tile_rows, width, height, cfg, dev)
+    out_h = band_height(tile_rows, height, cfg)
+    alloc = torch.empty if rows is None else torch.zeros
+    out = alloc(render_ref.N_PLANES, out_h, width, device=dev)
+    if tiles_x * out_h == 0:
         return out
     fn = _build.load("blend_fwd").gsjax_blend_fwd
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(),
-                tile_count.data_ptr(), bg.data_ptr(), out.data_ptr(), ctr,
+                tile_count.data_ptr(), 0 if rows is None else rows.data_ptr(),
+                0 if rows is None else rows.numel(), bg.data_ptr(), out.data_ptr(), ctr,
                 width, height, tiles_x, tiles_y, cfg.tile, fx, fy,
                 cfg.max_per_tile, int(cfg.require_depth), slots, cfg.alpha_clamp,
                 cfg.alpha_min, cfg.transmittance_min, cfg.sample_range,
@@ -241,35 +275,40 @@ def blend_bwd(feats_pairs: torch.Tensor, tile_start: torch.Tensor,
               tile_count: torch.Tensor, planes: torch.Tensor,
               grad_planes: torch.Tensor, width: int, height: int, fx: float,
               fy: float, bg: torch.Tensor, cfg: RasterConfig,
-              counters: torch.Tensor | None = None) -> torch.Tensor:
+              counters: torch.Tensor | None = None, tile_rows=None) -> torch.Tensor:
     """VJP of `blend_fwd` w.r.t. the pair payload -> d_feats [K, 16] float32.
 
     planes [16, H, W]: `blend_fwd`'s output for these arguments; grad_planes
     [16, H, W]: its cotangent (rows 0-7 read); `counters`: None, or a
-    `bwd_counters` buffer the kernel fills. Other arguments as
-    `blend_fwd`."""
+    `bwd_counters` buffer the kernel fills; `tile_rows`: None, or the tile
+    rows to run, with band-local planes and cotangent [16, len(tile_rows) *
+    tile, W]. Other arguments as `blend_fwd`."""
     ctr = check_bwd_counters("blend_bwd", counters, feats_pairs.device)
     if feats_pairs.device.type == "cpu":
         return render_ref.blend_bwd_planes(feats_pairs, tile_start, tile_count,
                                            planes, grad_planes, width, height,
-                                           fx, fy, bg, cfg)
+                                           fx, fy, bg, cfg, tile_rows=tile_rows)
     tiles_x, tiles_y = _check_launch("blend_bwd", feats_pairs, tile_start,
                                      tile_count, bg, width, height, cfg)
     if cfg.tile != _BWD_TILE:
         raise ValueError(f"the CUDA blend backward takes {_BWD_TILE}x{_BWD_TILE} "
                          f"tiles, got {cfg.tile}")
     dev = feats_pairs.device
-    _check("planes", planes, torch.float32, (render_ref.N_PLANES, height, width), dev)
+    rows = rows_tensor(tile_rows, width, height, cfg, dev)
+    out_h = band_height(tile_rows, height, cfg)
+    _check("planes", planes, torch.float32, (render_ref.N_PLANES, out_h, width), dev)
     _check("grad_planes", grad_planes, torch.float32,
-           (render_ref.N_PLANES, height, width), dev)
+           (render_ref.N_PLANES, out_h, width), dev)
     d_feats = torch.zeros_like(feats_pairs)
-    if tiles_x * tiles_y == 0 or feats_pairs.shape[0] == 0:
+    if tiles_x * out_h == 0 or feats_pairs.shape[0] == 0:
         return d_feats
     fn = _build.load("blend_bwd").gsjax_blend_bwd
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(feats_pairs.data_ptr(), tile_start.data_ptr(),
-                tile_count.data_ptr(), planes.data_ptr(), grad_planes.data_ptr(),
+                tile_count.data_ptr(), 0 if rows is None else rows.data_ptr(),
+                0 if rows is None else rows.numel(), planes.data_ptr(),
+                grad_planes.data_ptr(),
                 bg.data_ptr(), d_feats.data_ptr(), ctr, width, height, tiles_x,
                 tiles_y, cfg.tile, fx, fy, cfg.max_per_tile,
                 int(cfg.require_depth), cfg.alpha_clamp, cfg.alpha_min, stream)
@@ -287,22 +326,24 @@ class Blend(torch.autograd.Function):
     d(feats) = bwd(feats, ..., planes, d(planes)). `fwd` / `bwd` are
     `blend_fwd` / `blend_bwd` (kernels on CUDA tensors, twins on the CPU) or
     the twins `render_ref.blend_planes` / `blend_bwd_planes` on any device.
-    Only `feats` gets a gradient."""
+    With `tile_rows`, both run on that band of tile rows. Only `feats` gets a
+    gradient."""
 
     @staticmethod
     def forward(ctx, feats, tile_start, tile_count, width, height, fx, fy, bg,
-                cfg, fwd, bwd):
-        planes = fwd(feats, tile_start, tile_count, width, height, fx, fy, bg, cfg)
+                cfg, fwd, bwd, tile_rows=None):
+        planes = fwd(feats, tile_start, tile_count, width, height, fx, fy, bg, cfg,
+                     tile_rows=tile_rows)
         ctx.save_for_backward(feats, tile_start, tile_count, planes, bg)
-        ctx.args = (width, height, fx, fy, cfg, bwd)
+        ctx.args = (width, height, fx, fy, cfg, bwd, tile_rows)
         return planes
 
     @staticmethod
     def backward(ctx, grad_planes):
         feats, tile_start, tile_count, planes, bg = ctx.saved_tensors
-        width, height, fx, fy, cfg, bwd = ctx.args
+        width, height, fx, fy, cfg, bwd, tile_rows = ctx.args
         g = torch.zeros_like(planes)
         g[:8] = grad_planes[:8]          # rows 8-15 are not differentiable
         d_feats = bwd(feats, tile_start, tile_count, planes, g, width, height,
-                      fx, fy, bg, cfg)
-        return (d_feats,) + (None,) * 10
+                      fx, fy, bg, cfg, tile_rows=tile_rows)
+        return (d_feats,) + (None,) * 11

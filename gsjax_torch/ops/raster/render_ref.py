@@ -25,6 +25,10 @@ a backward pass reads). The twin evaluates row 12 at its bisection root.
 `blend_bwd_planes` is the VJP of the blend w.r.t. the pair payload, read from
 those residual planes as B2 reads them: the blend part front to back from
 the totals, and the median depth's implicit-function term.
+
+Both take the kernels' tile-row list `tile_rows`: only those rows of tiles,
+on band-local planes [16, len(tile_rows) * tile, W] (zero past the frame's
+height), each tile blended as in the full frame.
 """
 
 from __future__ import annotations
@@ -234,41 +238,63 @@ def blend_tiles_batch(feats_pad, tile_ids, starts, counts, tiles_x,
     return out
 
 
+def band_tiles(tile_rows, width, height, cfg: RasterConfig, device):
+    """Tile ids [R * tiles_x] of the tile rows `tile_rows` (None: every row),
+    row by row, and the row count R."""
+    tiles_x, tiles_y = cfg.grid(width, height)
+    rows = torch.arange(tiles_y, device=device) if tile_rows is None else \
+        torch.as_tensor(tile_rows, dtype=torch.int64, device=device).reshape(-1)
+    ids = rows[:, None] * tiles_x + torch.arange(tiles_x, device=device)[None, :]
+    return ids.reshape(-1), int(rows.shape[0])
+
+
 def blend_planes(feats_pairs, tile_start, tile_count, width, height, fx, fy,
-                 bg, cfg: RasterConfig) -> torch.Tensor:
+                 bg, cfg: RasterConfig, tile_rows=None) -> torch.Tensor:
     """Blend every tile of a frame -> [16, H, W] planes.
 
     feats_pairs [K,16] (prepare_pairs), tile_start/tile_count [T] int32,
-    bg [3] float32 on the same device."""
-    tiles_x, tiles_y = cfg.grid(width, height)
-    n_tiles = tiles_x * tiles_y
+    bg [3] float32 on the same device. `tile_rows`: None, or the tile rows
+    to blend -> [16, len(tile_rows) * tile, W], zero past the frame's
+    height."""
+    tiles_x, _ = cfg.grid(width, height)
     dev = feats_pairs.device
+    tile_ids, n_rows = band_tiles(tile_rows, width, height, cfg, dev)
+    n_tiles = tile_ids.shape[0]
     feats_pad = torch.cat([feats_pairs, feats_pairs.new_zeros(1, _F)])
-    counts = torch.clamp_max(tile_count.to(torch.int64), cfg.max_per_tile)
+    counts = torch.clamp_max(tile_count.to(torch.int64)[tile_ids], cfg.max_per_tile)
     # heavy tiles first so each batch is roughly homogeneous in count
     order = torch.argsort(-counts, stable=True)
     tiles = torch.empty(n_tiles, N_PLANES, cfg.pixels_per_tile, device=dev)
     for i in range(0, n_tiles, cfg.tile_batch):
-        ids = order[i:i + cfg.tile_batch]
-        tiles[ids] = blend_tiles_batch(
-            feats_pad, ids, tile_start[ids].to(torch.int64), counts[ids],
+        slot = order[i:i + cfg.tile_batch]
+        ids = tile_ids[slot]
+        tiles[slot] = blend_tiles_batch(
+            feats_pad, ids, tile_start[ids].to(torch.int64), counts[slot],
             tiles_x, cfg, bg, width, height, fx, fy)
     t = cfg.tile
-    img = tiles.reshape(tiles_y, tiles_x, N_PLANES, t, t)
-    img = img.permute(2, 0, 3, 1, 4).reshape(N_PLANES, tiles_y * t, tiles_x * t)
-    return img[:, :height, :width].contiguous()
+    img = tiles.reshape(n_rows, tiles_x, N_PLANES, t, t)
+    img = img.permute(2, 0, 3, 1, 4).reshape(N_PLANES, n_rows * t, tiles_x * t)
+    if tile_rows is None:
+        return img[:, :height, :width].contiguous()
+    img = img[:, :, :width].contiguous()
+    # rows past the frame's height: zero, as the kernel leaves them
+    y = (torch.as_tensor(tile_rows, dtype=torch.int64, device=dev).reshape(-1, 1) * t
+         + torch.arange(t, device=dev)).reshape(-1)
+    img[:, y >= height] = 0.0
+    return img
 
 
-def _to_tiles(img, cfg: RasterConfig, width, height):
-    """[C, H, W] planes -> [T, C, P] per-tile pixel rows (inverse of the
-    assembly at the end of `blend_planes`)."""
+def _to_tiles(img, cfg: RasterConfig, width, height, tile_rows=None):
+    """[C, H, W] planes (or a band's [C, R * tile, W]) -> [T, C, P] per-tile
+    pixel rows (inverse of the assembly at the end of `blend_planes`)."""
     tiles_x, tiles_y = cfg.grid(width, height)
+    n_rows = tiles_y if tile_rows is None else len(tile_rows)
     t = cfg.tile
     c = img.shape[0]
-    pad = img.new_zeros(c, tiles_y * t, tiles_x * t)
-    pad[:, :height, :width] = img
-    return pad.reshape(c, tiles_y, t, tiles_x, t).permute(1, 3, 0, 2, 4) \
-        .reshape(tiles_y * tiles_x, c, t * t)
+    pad = img.new_zeros(c, n_rows * t, tiles_x * t)
+    pad[:, :img.shape[1], :width] = img
+    return pad.reshape(c, n_rows, t, tiles_x, t).permute(1, 3, 0, 2, 4) \
+        .reshape(n_rows * tiles_x, c, t * t)
 
 
 def bwd_tiles_batch(feats_pad, d_pad, tile_ids, starts, counts, tiles_x, res, g,
@@ -363,7 +389,8 @@ def bwd_tiles_batch(feats_pad, d_pad, tile_ids, starts, counts, tiles_x, res, g,
 
 
 def blend_bwd_planes(feats_pairs, tile_start, tile_count, planes, grad_planes,
-                     width, height, fx, fy, bg, cfg: RasterConfig) -> torch.Tensor:
+                     width, height, fx, fy, bg, cfg: RasterConfig,
+                     tile_rows=None) -> torch.Tensor:
     """VJP of `blend_planes` w.r.t. the pair payload -> d_feats [K, 16].
 
     `planes` [16, H, W] are the forward's output (B1's or the twin's), read as
@@ -373,20 +400,23 @@ def blend_bwd_planes(feats_pairs, tile_start, tile_count, planes, grad_planes,
     8-15 are not differentiable and are ignored). A pixel's applied pairs are
     those of its list before n_contrib that pass the alpha test, so a
     stopped pixel stays stopped (the port's semantics, not gsjax's chunked
-    resume)."""
-    tiles_x, tiles_y = cfg.grid(width, height)
-    n_tiles = tiles_x * tiles_y
+    resume). With `tile_rows`, only those rows of tiles, from band-local
+    planes and cotangent [16, len(tile_rows) * tile, W]."""
+    tiles_x, _ = cfg.grid(width, height)
+    tile_ids, _ = band_tiles(tile_rows, width, height, cfg, feats_pairs.device)
+    n_tiles = tile_ids.shape[0]
     feats_pad = torch.cat([feats_pairs, feats_pairs.new_zeros(1, _F)])
     d_pad = torch.zeros_like(feats_pad)
-    res = _to_tiles(planes, cfg, width, height)
-    g = _to_tiles(grad_planes, cfg, width, height)
-    counts = torch.clamp_max(tile_count.to(torch.int64), cfg.max_per_tile)
+    res = _to_tiles(planes, cfg, width, height, tile_rows)
+    g = _to_tiles(grad_planes, cfg, width, height, tile_rows)
+    counts = torch.clamp_max(tile_count.to(torch.int64)[tile_ids], cfg.max_per_tile)
     # heavy tiles first, as in blend_planes
     order = torch.argsort(-res[:, 8].amax(1), stable=True)
     for i in range(0, n_tiles, cfg.tile_batch):
-        ids = order[i:i + cfg.tile_batch]
+        slot = order[i:i + cfg.tile_batch]
+        ids = tile_ids[slot]
         bwd_tiles_batch(feats_pad, d_pad, ids, tile_start[ids].to(torch.int64),
-                        counts[ids], tiles_x, res[ids], g[ids], cfg, bg, width,
+                        counts[slot], tiles_x, res[slot], g[slot], cfg, bg, width,
                         height, fx, fy)
     return d_pad[:-1]
 

@@ -33,6 +33,7 @@ import functools
 
 import torch
 
+from gsjax_torch.core import rowwise
 from gsjax_torch.ops import sample_cuda, sample_ref
 from gsjax_torch.ops.raster import render_ref
 from gsjax_torch.ops.raster.api import select
@@ -45,11 +46,11 @@ from gsjax_torch.ops.raster.preprocess import preprocess
 def _project_points(points, camera: Camera, cfg: RasterConfig):
     """Project query points into the view. Returns (px, py, t_ray, inside0)."""
     wv = camera.world_view
-    pv = points @ wv[:3, :3].T + wv[:3, 3]
+    pv = rowwise.affine(points, wv[:3, :3], wv[:3, 3])
     in_front = pv[:, 2] > cfg.near_plane
     full = camera.full_proj
-    ph = points @ full[:3, :3].T + full[:3, 3]
-    pw = points @ full[3, :3] + full[3, 3]
+    ph = rowwise.affine(points, full[:3, :3], full[:3, 3])
+    pw = rowwise.affine(points, full[3:4, :3], full[3:4, 3])[:, 0]
     pp = ph / (pw[:, None] + 1e-7)
     px = ((pp[:, 0] + 1) * camera.width - 1) * 0.5
     py = ((pp[:, 1] + 1) * camera.height - 1) * 0.5

@@ -2,16 +2,22 @@
 flythrough, to PNG trees.
 
 Port of the repository's `render.py` (the reference `render.py:24-65` output
-layout, <model>/{train,test,traj}/ours_<iter>/{renders,gt,depth}/#####.png)
-on one device: cuda unless `--device cpu` is given.
+layout, <model>/{train,test,traj}/ours_<iter>/{renders,gt,depth}/#####.png):
+cuda unless `--device cpu` is given.
 
     python -m gsjax_torch.render -m <model> [-s <scene>] [--traj_frames N
-        [--video]] [--save_depth] [--device cpu]
+        [--video]] [--save_depth] [--n_devices N] [--device cpu]
+
+`--n_devices N` (root render.py:82-111) renders view-parallel: N ranks
+started here (`parallel.launch`; min(N, cards) on the card, N on the CPU;
+N <= 0 every card) take the views round-robin (`render_views_sharded`), and
+rank 0 writes every PNG.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 from argparse import ArgumentParser
 
 import numpy as np
@@ -36,43 +42,59 @@ class _TrajView:
 
 
 def render_set(model_path, name, iteration, views, render_fn,
-               save_depth=False, on_view=None):
+               save_depth=False, on_view=None, batch=1, write=True):
     """Render `views` to <model>/<name>/ours_<iteration>/. `on_view(idx,
-    view, out)` is called with each view's output dict."""
+    view, out)` is called with each view's output dict. With `batch` > 1,
+    `render_fn` takes a list of up to `batch` views and returns their
+    outputs; `write`: False renders without writing (the ranks other than
+    the writer of a view-parallel run)."""
     base = os.path.join(model_path, name, f"ours_{iteration}")
-    renders_path = os.path.join(base, "renders")
-    gts_path = os.path.join(base, "gt")
-    os.makedirs(renders_path, exist_ok=True)
-    os.makedirs(gts_path, exist_ok=True)
-    if save_depth:
-        depth_path = os.path.join(base, "depth")
-        os.makedirs(depth_path, exist_ok=True)
-    for idx, view in enumerate(views):
-        out = render_fn(view)
-        save_png(os.path.join(renders_path, f"{idx:05d}.png"),
-                 out["render"].cpu().numpy())
-        save_png(os.path.join(gts_path, f"{idx:05d}.png"), view.image)
-        if save_depth:
-            from PIL import Image
+    paths = [os.path.join(base, d) for d in ("renders", "gt", "depth")]
+    if write:
+        for path in paths[:3 if save_depth else 2]:
+            os.makedirs(path, exist_ok=True)
+    for i0 in range(0, len(views), batch):
+        chunk = views[i0:i0 + batch]
+        outs = render_fn(chunk) if batch > 1 else [render_fn(chunk[0])]
+        for idx, view, out in zip(range(i0, i0 + len(chunk)), chunk, outs):
+            if write:
+                _write_view(paths, idx, view, out, save_depth)
+            if on_view is not None:
+                on_view(idx, view, out)
+            if write:
+                print(f"\r{name} {idx + 1}/{len(views)}", end="", flush=True)
+    if write:
+        print()
 
-            Image.fromarray(apply_depth_colormap(
-                out["median_depth"].cpu().numpy())).save(
-                os.path.join(depth_path, f"{idx:05d}.png"))
-        if on_view is not None:
-            on_view(idx, view, out)
-        print(f"\r{name} {idx + 1}/{len(views)}", end="", flush=True)
-    print()
+
+def _write_view(paths, idx, view, out, save_depth):
+    renders_path, gts_path, depth_path = paths
+    save_png(os.path.join(renders_path, f"{idx:05d}.png"), out["render"].cpu().numpy())
+    save_png(os.path.join(gts_path, f"{idx:05d}.png"), view.image)
+    if save_depth:
+        from PIL import Image
+
+        Image.fromarray(apply_depth_colormap(out["median_depth"].cpu().numpy())).save(
+            os.path.join(depth_path, f"{idx:05d}.png"))
+
+
+def _rank_main(rank, argv):
+    """One rank of `--n_devices N` (its group is up): the CLI on `argv`."""
+    main(argv)
 
 
 def main(argv=None, on_view=None):
     """Run the CLI on `argv` (default sys.argv[1:]); `on_view` as in
     `render_set`."""
+    import torch.distributed as dist
+
     from gsjax_torch import resolve_device
     from gsjax_torch.config import ModelParams, PipelineParams, get_combined_args
     from gsjax_torch.data.readers import load_scene
     from gsjax_torch.model import gaussians as gm
     from gsjax_torch.model.io import load_ply
     from gsjax_torch.ops.raster import RasterConfig, render
+    from gsjax_torch.parallel import launch, multihost, shard
     from gsjax_torch.utils.system import search_max_iteration
 
     parser = ArgumentParser(description="gsjax_torch rendering")
@@ -91,14 +113,26 @@ def main(argv=None, on_view=None):
                         help="stitch the flythrough frames into .mp4s "
                              "(render_utils.py create_videos equivalent; "
                              "needs OpenCV, cv2)")
+    parser.add_argument("--n_devices", default=1, type=int,
+                        help="render views data-parallel over N ranks started here "
+                             "(<= 0: every card; 1: one device)")
     parser.add_argument("--pair_capacity", default=1 << 22, type=int,
                         help="kept for flag parity with gsjax; the port sizes "
                              "its pair buffers from the real pair count")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' for the "
                              "plain-PyTorch path)")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = get_combined_args(parser, argv)
-    dev = resolve_device(getattr(args, "device", None))
+    n = multihost.resolve_ranks(args.n_devices, getattr(args, "device", None))
+    if n > 1 and not dist.is_initialized():
+        launch.launch(_rank_main, n, args=(argv,),
+                      device=getattr(args, "device", None) or "cuda", timeout=None,
+                      threads=None)
+        return
+    dev = multihost.local_device(resolve_device(getattr(args, "device", None)))
+    batch = multihost.ranks()
+    write = multihost.is_primary()
     if args.video and args.traj_frames > 0:
         try:
             import cv2  # noqa: F401
@@ -135,19 +169,25 @@ def main(argv=None, on_view=None):
                       sg_sharpness=sg_sharp, sg_color=params.sg_color,
                       alive=aux.alive)
 
+    if batch > 1:
+        if write:
+            print(f"view-parallel rendering over {batch} ranks", flush=True)
+
+        def render_fn(views):             # noqa: F811 (the view-parallel form)
+            outs = shard.render_views_sharded(params, aux, [v.camera for v in views], cfg, bg)
+            return [{k: v[i] for k, v in outs.items()} for i in range(len(views))]
+
+    kw = dict(save_depth=args.save_depth, on_view=on_view, batch=batch, write=write)
     if not args.skip_train:
-        render_set(args.model_path, "train", iteration, scene.train_views,
-                   render_fn, save_depth=args.save_depth, on_view=on_view)
+        render_set(args.model_path, "train", iteration, scene.train_views, render_fn, **kw)
     if not args.skip_test and scene.test_views:
-        render_set(args.model_path, "test", iteration, scene.test_views,
-                   render_fn, save_depth=args.save_depth, on_view=on_view)
+        render_set(args.model_path, "test", iteration, scene.test_views, render_fn, **kw)
     if args.traj_frames > 0:
         cams = generate_path([v.camera for v in scene.train_views],
                              n_frames=args.traj_frames)
         render_set(args.model_path, "traj", iteration,
-                   [_TrajView(c) for c in cams], render_fn,
-                   save_depth=args.save_depth, on_view=on_view)
-        if args.video:
+                   [_TrajView(c) for c in cams], render_fn, **kw)
+        if args.video and write:
             out = create_videos(
                 args.model_path,
                 os.path.join(args.model_path, "traj", f"ours_{iteration}"),

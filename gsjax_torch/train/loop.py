@@ -1,6 +1,6 @@
 """The training loop (port of `gsjax/train/loop.py`: `Trainer`, `run_training`).
 
-Mirrors `training()` (train.py:41-270) on one device: camera sampling with
+Mirrors `training()` (train.py:41-270): camera sampling with
 Python's `random` (seeded as train.py:50-54, so the port visits the same
 views in the same order as gsjax), the SH/SG degree schedule, the
 densification and opacity-reset schedule, the 3D-filter refresh, test
@@ -39,8 +39,15 @@ render / normal | depth mosaic every 200 regularised steps under
 `<model>/debug/`; TensorBoard gets gsjax's scalars, histogram and images
 where `torch.utils.tensorboard` imports.
 
-Not ported (each raises when asked for): sharding and multi-host
-(`--n_devices != 1`, `--dist_*`).
+Across devices (gsjax loop.py:222-286, :444-450, :689-821): under a
+`torch.distributed` group of more than one rank (`--dist_*`, or the ranks
+that `--n_devices N` starts, `parallel.launch`), each step is
+`parallel.train_step_sharded` on the band partition of `band_kwargs`
+(equal-pair bands from the per-row pair histograms of earlier steps,
+`note_row_pairs`; dual bands where they balance better), with the dense
+NCC. Every rank draws the same views and randoms and keeps a bit-equal
+model; only the primary rank (rank 0) writes the scene artefacts,
+`multi_view.json`, TensorBoard, test evaluations, PLYs and checkpoints.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from gsjax_torch.model.io import load_checkpoint, save_checkpoint, save_ply
 from gsjax_torch.ops.knn import mean_knn_dist2
 from gsjax_torch.ops.raster import RasterConfig, render
 from gsjax_torch.ops.raster.camera import Camera
+from gsjax_torch.parallel import multihost, shard
 from gsjax_torch.train import losses
 from gsjax_torch.train.step import LossConfig, train_step
 from gsjax_torch.utils.schedules import expon_lr
@@ -108,6 +116,20 @@ class Trainer:
     nan_probe: bool = dataclasses.field(default_factory=lambda: os.environ.get(
         "GSJAX_NAN_PROBE", "") not in ("", "0"))
     _nan_dumps: int = 0
+    # across devices: the ranks of the torch.distributed group (1: one
+    # device); equal-PAIR band balancing from per-tile-row pair histograms
+    # (GSJAX_BAND_BALANCE=0: equal rows), a band at most rows_factor x the
+    # equal-rows height, and dual bands per rank where they balance better
+    # (gsjax loop.py:90-103)
+    n_ranks: int = 1
+    band_balance: bool = dataclasses.field(default_factory=lambda: os.environ.get(
+        "GSJAX_BAND_BALANCE", "1") not in ("0", ""))
+    band_rows_factor: float = dataclasses.field(default_factory=lambda: float(
+        os.environ.get("GSJAX_BAND_ROWS_FACTOR", "2")))
+    dual_bands: bool = dataclasses.field(default_factory=lambda: os.environ.get(
+        "GSJAX_DUAL_BANDS", "1") not in ("0", ""))
+    _row_pairs: dict = dataclasses.field(default_factory=dict)
+    primary: bool = True     # this process writes the run's files
 
     @staticmethod
     def create(scene: SceneInfo, opt, model_path, device, sh_degree=3, sg_degree=0,
@@ -239,6 +261,56 @@ class Trainer:
             self.app = app_lib.update_net(self.app, metrics["app_net_grad"],
                                           o.appearance_network_lr)
 
+    # --- across devices ------------------------------------------------------
+
+    @property
+    def sharded(self) -> bool:
+        return self.n_ranks > 1
+
+    def band_kwargs(self, camera, cfg, uid=None) -> dict:
+        """The partition of the sharded step (gsjax loop.py:222-273): equal
+        rows before any histogram; then the best of the equal-pair single
+        bands, the mirrored dual bands and the freely paired dual bands, from
+        the view's own histogram of its last visit, else the scene's EMA."""
+        if not (self.sharded and self.band_balance):
+            return {}
+        n = self.n_ranks
+        _, tiles_y = cfg.grid(camera.width, camera.height)
+        rows_per = -(-tiles_y // n)
+        rpm = min(tiles_y, max(rows_per, int(np.ceil(self.band_rows_factor * rows_per))))
+        hist = self._row_pairs.get((uid, tiles_y), self._row_pairs.get(tiles_y))
+        if hist is None:
+            return dict(row_bounds=shard.equal_band_bounds(tiles_y, n))
+        bounds, pair = shard.balance_band_bounds(hist, n, rpm), None
+        h = np.asarray(hist, np.float64)
+        cum = np.concatenate([[0.0], np.cumsum(h)])
+        best = max(cum[bounds[d + 1]] - cum[bounds[d]] for d in range(n))
+        if self.dual_bands and tiles_y >= 2 * n:
+            b2 = shard.dual_balance_bounds(hist, n, max(rpm // 2, 1))
+            s2 = max(cum[b2[d + 1]] - cum[b2[d]] + cum[b2[2 * n - d]] - cum[b2[2 * n - 1 - d]]
+                     for d in range(n))
+            if s2 < best:
+                bounds, pair, best = b2, None, s2
+            b3, p3 = shard.paired_balance_bounds(hist, n, rpm)
+            s3 = max(cum[b3[p3[d, 0] + 1]] - cum[b3[p3[d, 0]]] +
+                     cum[b3[p3[d, 1] + 1]] - cum[b3[p3[d, 1]]] for d in range(n))
+            if s3 < best:
+                bounds, pair, best = b3, p3, s3
+        return dict(row_bounds=bounds, band_pair=pair)
+
+    def note_row_pairs(self, metrics, uid=None):
+        """Record a step's per-tile-row pair histogram (gsjax loop.py:275-286):
+        exact per view (keyed (uid, tiles_y)) and a scene EMA for views not
+        seen yet."""
+        if "row_pairs" not in metrics:
+            return
+        new = np.asarray(metrics["row_pairs"], np.float64)
+        if uid is not None:
+            self._row_pairs[(uid, len(new))] = new
+        old = self._row_pairs.get(len(new))
+        self._row_pairs[len(new)] = \
+            new if old is None or len(old) != len(new) else 0.7 * old + 0.3 * new
+
     # --- main loop -----------------------------------------------------------
 
     def step(self):
@@ -255,7 +327,8 @@ class Trainer:
         if reg_on and view.nearest_ids and (
                 o.lambda_multi_view_ncc > 0 or o.lambda_multi_view_geo > 0):
             near = self.scene.train_views[random.choice(view.nearest_ids)]
-        ncc_compact = near is not None and \
+        # the sharded step keeps the dense NCC, as gsjax's (loop.py:418-421)
+        ncc_compact = near is not None and not self.sharded and \
             os.environ.get("GSJAX_NCC_COMPACT", "0") not in ("0", "")
         lcfg = LossConfig(lambda_dssim=o.lambda_dssim,
                           lambda_depth_normal=o.lambda_depth_normal,
@@ -284,9 +357,18 @@ class Trainer:
         # re-run, loss-free, after raising the cap (train_step changes
         # nothing when it reports an overflow)
         for attempt in range(1, 5):
-            self.params, self.aux, self.adam, metrics = train_step(
-                self.params, self.aux, self.adam, view.camera, self.gt_for(view),
-                bg, self.lrs(), self.raster_cfg(require_depth=reg_on), lcfg, **step_args)
+            cfg = self.raster_cfg(require_depth=reg_on)
+            if self.sharded:
+                bands = self.band_kwargs(view.camera, cfg, view.uid)
+                self.params, self.aux, self.adam, metrics = shard.train_step_sharded(
+                    self.params, self.aux, self.adam, view.camera, self.gt_for(view),
+                    bg, self.lrs(), cfg, lcfg, **step_args, **bands)
+                metrics["partition"] = {k: np.asarray(v).tolist() for k, v in bands.items()
+                                        if v is not None}
+            else:
+                self.params, self.aux, self.adam, metrics = train_step(
+                    self.params, self.aux, self.adam, view.camera, self.gt_for(view),
+                    bg, self.lrs(), cfg, lcfg, **step_args)
             if not metrics["overflowed"]:
                 break
             self.monitor_capacity(metrics)
@@ -297,9 +379,10 @@ class Trainer:
         metrics["max_per_tile"] = self.max_per_tile    # the cap this step ran with
         metrics["view"] = view.uid
         metrics["near"] = near.uid if near is not None else None
+        self.note_row_pairs(metrics, view.uid)
         if self.nan_probe:
             self.probe_nonfinite(metrics, prev, view, near)
-        if self.debug and reg_on and it % 200 == 0:
+        if self.debug and reg_on and it % 200 == 0 and self.primary:
             self.write_debug_mosaic(view)
         # on blow-up, the step's state and views, replayable offline (the
         # reference's snapshot_fw.dump, diff_gaussian_rasterization/__init__.py:101-107)
@@ -311,7 +394,8 @@ class Trainer:
                          for i, k in enumerate(gm.AUX_FIELDS)})
             flat.update(view_uid=np.asarray(view.uid), iteration=np.asarray(it),
                         near_uid=np.asarray(-1 if near is None else near.uid))
-            np.savez_compressed(path, **flat)
+            if self.primary:
+                np.savez_compressed(path, **flat)
             raise FloatingPointError(
                 f"non-finite loss at iteration {it} "
                 f"(view {view.image_name}); state dumped to {path}")
@@ -358,6 +442,8 @@ class Trainer:
         self._nan_dumps += 1
         it = self.iteration
         path = os.path.join(self.model_path, f"nan_probe_it{it}.npz")
+        if not self.primary:
+            return
         flat = {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in prev.items()}
         flat.update(view_uid=np.asarray(view.uid),
                     near_uid=np.asarray(-1 if near is None else near.uid),
@@ -466,27 +552,17 @@ def serve_viewer(gui: NetworkGUI, trainer: Trainer, source_path: str, final_iter
             gui.disconnect()
 
 
-def _refuse_unported(args):
-    """Raise for the gsjax options this port leaves out."""
-    asks = {
-        "--n_devices != 1 (sharding)": int(getattr(args, "n_devices", 1) or 1) != 1,
-        "multi-host (--dist_*)": (getattr(args, "dist_coordinator", "")
-                                  or int(getattr(args, "dist_num_processes", 1) or 1) != 1
-                                  or getattr(args, "dist_auto", False)),
-    }
-    asked = [k for k, v in asks.items() if v]
-    if asked:
-        raise NotImplementedError("not ported to gsjax_torch yet: " + ", ".join(asked))
-
-
 def _tensorboard(model_path):
-    """gsjax's soft dependency (loop.py:735-742): a SummaryWriter where
-    `torch.utils.tensorboard` imports, else None and no scalars."""
+    """gsjax's soft dependency (loop.py:737-743): a SummaryWriter where
+    `torch.utils.tensorboard` imports and the writer opens, else None and no
+    scalars (any exception of either, as gsjax catches)."""
     try:
         from torch.utils.tensorboard import SummaryWriter
-    except ImportError:
+
+        return SummaryWriter(model_path)
+    except Exception as e:
+        print(f"TensorBoard unavailable ({type(e).__name__}: {e}); training without it")
         return None
-    return SummaryWriter(model_path)
 
 
 def _profiler(device):
@@ -522,11 +598,22 @@ def _report(tb, trainer, scene, it, test_iters):
 def run_training(lp, op, pp, args, device=None, on_step=None):
     """Full CLI training entry (train.py:__main__ + training()) on `device`
     (cuda unless asked for the CPU). `on_step(trainer, metrics)` is called
-    after every step."""
+    after every step.
+
+    With `--dist_*` in `args` the process joins that group first; under a
+    group (joined so, or started by `parallel.launch`) of more than one rank
+    the steps are sharded, `args.n_devices` (when not 1) must match the
+    group's size, and the rank's device is `cuda:(local rank % cards)`."""
     from gsjax_torch import resolve_device
 
-    _refuse_unported(args)
     dev = resolve_device(device)
+    multihost.maybe_init_distributed(args, dev)
+    dev = multihost.local_device(dev)
+    n_ranks = multihost.ranks()
+    n_req = int(getattr(args, "n_devices", 1))
+    if n_req != 1 and n_req > 0 and n_req != n_ranks:
+        raise ValueError(f"--n_devices {n_req} but {n_ranks} rank(s) are running: start "
+                         f"the ranks with parallel.launch or the training CLI")
     # the live-viewer server (SIBR remote protocol, reference train.py:93-120),
     # bound before the scene loads so that a viewer can connect during set-up
     # and see the first step's model
@@ -537,26 +624,29 @@ def run_training(lp, op, pp, args, device=None, on_step=None):
         except OSError as e:
             print(f"viewer server unavailable ({e}); training without GUI")
     try:
-        return _train(lp, op, pp, args, dev, on_step, gui)
+        return _train(lp, op, pp, args, dev, on_step, gui, n_ranks)
     finally:
         if gui is not None:
             gui.close()
 
 
-def _train(lp, op, pp, args, dev, on_step, gui):
+def _train(lp, op, pp, args, dev, on_step, gui, n_ranks):
+    # every rank runs the same schedule; only the primary writes files
+    primary = multihost.is_primary()
     scene = load_scene(lp.source_path, lp.images, lp.masks or None, lp.eval,
                        lp.resolution, lp.white_background, device=dev)
     build_nearest_view_graph(scene.train_views, lp.multi_view_max_angle,
                              lp.multi_view_min_dis, lp.multi_view_max_dis,
                              lp.multi_view_num)
-    os.makedirs(lp.model_path, exist_ok=True)
-    write_scene_artifacts(lp.model_path, scene)
-    with open(os.path.join(lp.model_path, "multi_view.json"), "w") as f:
-        for v in scene.train_views:
-            f.write(json.dumps(
-                {"ref_name": v.image_name,
-                 "nearest_name": [scene.train_views[i].image_name
-                                  for i in v.nearest_ids]}) + "\n")
+    if primary:
+        os.makedirs(lp.model_path, exist_ok=True)
+        write_scene_artifacts(lp.model_path, scene)
+        with open(os.path.join(lp.model_path, "multi_view.json"), "w") as f:
+            for v in scene.train_views:
+                f.write(json.dumps(
+                    {"ref_name": v.image_name,
+                     "nearest_name": [scene.train_views[i].image_name
+                                      for i in v.nearest_ids]}) + "\n")
 
     trainer = Trainer.create(
         scene, op, lp.model_path, dev, sh_degree=lp.sh_degree, sg_degree=lp.sg_degree,
@@ -565,6 +655,9 @@ def _train(lp, op, pp, args, dev, on_step, gui):
         appearance=APPEARANCE_KINDS[lp.use_decoupled_appearance])
     trainer.random_background = bool(getattr(op, "random_background", False))
     trainer.debug = bool(getattr(pp, "debug", False))
+    trainer.n_ranks, trainer.primary = n_ranks, primary
+    if n_ranks > 1 and primary:
+        print(f"Sharding tile rows over {n_ranks} ranks")
     if getattr(args, "start_checkpoint", None):
         p, a, ad, it, extra = load_checkpoint(args.start_checkpoint, device=dev)
         trainer.params, trainer.aux, trainer.adam, trainer.iteration = p, a, ad, it
@@ -578,7 +671,7 @@ def _train(lp, op, pp, args, dev, on_step, gui):
     # written) even when a step raises
     profile_iter = int(getattr(args, "profile_iter", 0) or 0)
     prof = None
-    tb = _tensorboard(lp.model_path)
+    tb = _tensorboard(lp.model_path) if primary else None
 
     def stop_profile():
         nonlocal prof
@@ -595,7 +688,7 @@ def _train(lp, op, pp, args, dev, on_step, gui):
         while trainer.iteration < op.iterations:
             if gui is not None:
                 serve_viewer(gui, trainer, lp.source_path, op.iterations)
-            if profile_iter and trainer.iteration + 1 == profile_iter:
+            if profile_iter and trainer.iteration + 1 == profile_iter and primary:
                 prof = _profiler(dev)
                 prof.start()
             span = (torch.profiler.record_function(f"train_step {trainer.iteration + 1}")
@@ -608,7 +701,7 @@ def _train(lp, op, pp, args, dev, on_step, gui):
             if on_step is not None:
                 on_step(trainer, metrics)
             ema = 0.4 * metrics["loss"] + 0.6 * ema
-            if it % 100 == 0:
+            if it % 100 == 0 and primary:
                 dt = time.time() - t0
                 n_alive = int(trainer.aux.alive.sum())
                 print(f"[{it}] loss={ema:.4f} n={n_alive} "
@@ -623,7 +716,7 @@ def _train(lp, op, pp, args, dev, on_step, gui):
                     tb.add_scalar("total_points", n_alive, it)
                     tb.add_scalar("iter_time", dt / 100.0 * 1000.0, it)
                 t0 = time.time()
-            if it in test_iters and scene.test_views:
+            if it in test_iters and scene.test_views and primary:
                 psnr = trainer.evaluate(scene.test_views)
                 print(f"[{it}] test PSNR {psnr:.3f}", flush=True)
                 with open(os.path.join(lp.model_path, f"chkpnt{it}.txt"), "w") as f:
@@ -631,9 +724,9 @@ def _train(lp, op, pp, args, dev, on_step, gui):
                 if tb is not None:
                     tb.add_scalar("test/psnr", psnr, it)
                     _report(tb, trainer, scene, it, test_iters)
-            if it in save_iters:
+            if it in save_iters and primary:
                 trainer.save_model()
-            if it in ckpt_iters:
+            if it in ckpt_iters and primary:
                 trainer.save_ckpt()
     finally:
         stop_profile()

@@ -62,6 +62,19 @@ def ssim(img1, img2, window_size=11, sigma=1.5):
     return torch.mean(_ssim_map(img1, img2, window_size, sigma))
 
 
+def ssim_partial(img1, img2, row_mask=None, window_size=11, sigma=1.5):
+    """Masked partial SSIM sum of a band of rows (gsjax losses.py:74).
+
+    img1 / img2: [Hs, W, C] row slices (a band of the valid map's rows plus
+    the window's k - 1 halo rows below it); the valid map has Hs - k + 1 rows,
+    summed where row_mask [Hs - k + 1] is True (None: all). The frame's mean
+    is the sum of the bands' partials over (H - k + 1)(W - k + 1) C."""
+    m = _ssim_map(img1, img2, window_size, sigma)
+    if row_mask is not None:
+        m = torch.where(row_mask[:, None, None], m, torch.zeros_like(m))
+    return torch.sum(m)
+
+
 def depth_to_normal(depth, fx, fy, cx, cy):
     """Camera-space normals from a z-depth map via central differences of
     back-projected points (utils/graphics_utils.py:103-119).

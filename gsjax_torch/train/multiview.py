@@ -1,7 +1,7 @@
 """PGSR multi-view losses: geometric reprojection + patch-warped NCC.
 
 Port of `gsjax/train/multiview.py` (the reference's `PatchMatch.__call__`,
-utils/loss_utils.py:140-267), single device:
+utils/loss_utils.py:140-267):
 
   1. backproject the rendered median depth to world points;
   2. sample the neighbour view's median depth along each point's ray,
@@ -22,12 +22,17 @@ With `ncc_compact` the NCC runs only on the 16x16 pixel blocks that hold a
 pixel of the geometric mask (`ops.ncc.warp_patch_ncc_blocks`: kernel B6
 launched as `warp_sample_blocks`), gsjax's `GSJAX_NCC_COMPACT=1`
 (multiview.py:212-222); its blocks are compacted to their real count too.
+
+`patchmatch_terms` returns the masked sums and counts for a band of rows at
+`row_offset` (the multi-device step sums them over ranks; dense NCC only,
+as gsjax's sharded step); `patchmatch_losses` divides them for one device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gsjax_torch.core import rowwise
 from gsjax_torch.ops import ncc as ncc_ops
 from gsjax_torch.ops import warp_sample as ws
 from gsjax_torch.ops.raster.api import select
@@ -47,10 +52,10 @@ def _invert_rigid(wv: torch.Tensor) -> torch.Tensor:
 
 def _geo_terms(pts_world, median_depth, means3d, scales, rotations, opacities,
                alive, ref_cam: Camera, near_cam: Camera, cfg: RasterConfig,
-               pixel_noise_th):
-    """Geometric terms over the compacted queries. Returns (geo_sum, geo_cnt,
-    d_mask [H,W], weights [H,W], n_queries, the neighbour's largest tile
-    list)."""
+               pixel_noise_th, row_offset=0):
+    """Geometric terms over the compacted queries of a band of rows at
+    `row_offset`. Returns (geo_sum, geo_cnt, d_mask [Hs,W], weights [Hs,W],
+    n_queries, the neighbour's largest tile list)."""
     h, w = median_depth.shape
     pw = pts_world.reshape(-1, 3)
     dep = median_depth.detach().reshape(-1)
@@ -61,12 +66,12 @@ def _geo_terms(pts_world, median_depth, means3d, scales, rotations, opacities,
     pts_near = res["point_cam"]                                   # [n, 3]
 
     rel = ref_cam.world_view @ _invert_rigid(near_cam.world_view)  # near -> ref
-    pts_ref = pts_near @ rel[:3, :3].T + rel[:3, 3]
+    pts_ref = rowwise.affine(pts_near, rel[:3, :3], rel[:3, 3])
     z = torch.clamp_min(pts_ref[:, 2], 1e-7)
     u = pts_ref[:, 0] / z * ref_cam.fx + ref_cam.cx
     v = pts_ref[:, 1] / z * ref_cam.fy + ref_cam.cy
     uu = (sel % w).to(torch.float32)
-    vv = (sel // w).to(torch.float32)
+    vv = (sel // w + row_offset).to(torch.float32)
     pixel_noise = torch.sqrt((u - uu) ** 2 + (v - vv) ** 2 + 1e-12)
 
     with torch.no_grad():
@@ -84,47 +89,54 @@ def _geo_terms(pts_world, median_depth, means3d, scales, rotations, opacities,
             res["max_tile_count"])
 
 
-def backproject(median_depth: torch.Tensor, cam: Camera) -> torch.Tensor:
-    """World points [H,W,3] of an [H,W] median depth rendered by `cam`
-    (loss_utils.py:146-159)."""
+def backproject(median_depth: torch.Tensor, cam: Camera, row_offset: int = 0) -> torch.Tensor:
+    """World points [Hs,W,3] of an [Hs,W] median depth rendered by `cam`, the
+    frame's rows from `row_offset` (loss_utils.py:146-159)."""
     h, w = median_depth.shape
     dev = median_depth.device
     xs = (torch.arange(w, dtype=torch.float32, device=dev) - cam.cx) / cam.fx
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) - cam.cy) / cam.fy
+    ys = ((torch.arange(h, device=dev) + row_offset).to(torch.float32) - cam.cy) / cam.fy
     pts_cam = torch.stack([median_depth * xs[None, :], median_depth * ys[:, None],
                            median_depth], -1)
     inv_r = _invert_rigid(cam.world_view)
-    return pts_cam @ inv_r[:3, :3].T + inv_r[:3, 3]
+    return rowwise.affine(pts_cam, inv_r[:3, :3], inv_r[:3, 3])
 
 
-def patchmatch_losses(median_depth: torch.Tensor, normal: torch.Tensor,
-                      means3d, scales, rotations, opacities, alive,
-                      ref_cam: Camera, near_cam: Camera,
-                      gray_r: torch.Tensor, gray_n: torch.Tensor,
-                      cfg: RasterConfig, pixel_noise_th: float = 1.0,
-                      patch_size: int = 3, ncc_compact: bool = False):
-    """PGSR losses of one reference view against one neighbour.
+def patchmatch_terms(median_depth: torch.Tensor, normal: torch.Tensor,
+                     means3d, scales, rotations, opacities, alive,
+                     ref_cam: Camera, near_cam: Camera,
+                     gray_r: torch.Tensor, gray_n: torch.Tensor,
+                     cfg: RasterConfig, pixel_noise_th: float = 1.0,
+                     patch_size: int = 3, row_offset: int = 0,
+                     ncc_compact: bool = False):
+    """PGSR terms of a band of the reference view against one neighbour
+    (gsjax multiview.py:156-235).
 
-    median_depth / normal: [H,W(,3)] rendered in the reference view;
-    gray_r / gray_n: [H,W] luma images of the two views. The gaussian
-    arguments are those of `sample_depth`. `cfg.backend` picks kernels or
-    twins as for the blend. `ncc_compact` runs the block-compacted NCC.
+    median_depth / normal: [Hs,W(,3)] rows row_offset .. row_offset + Hs of
+    the reference view's render; gray_r / gray_n: [H,W] luma images of the
+    two views, whole frames. The gaussian arguments are those of
+    `sample_depth`. `cfg.backend` picks kernels or twins as for the blend.
+    `ncc_compact` runs the block-compacted NCC (whole frames only).
 
-    Returns (ncc_loss, geo_loss, n_queries, near_max_tile_count, n_blocks):
-    two scalar tensors, the number of geometric queries (pixels with a depth
-    that project inside the neighbour's frustum), the neighbour view's
-    largest tile list and the NCC's selected 16x16 blocks (0 without
-    `ncc_compact`), all three Python ints."""
+    Returns (ncc_sum, ncc_cnt, geo_sum, geo_cnt, n_queries,
+    near_max_tile_count, n_blocks): the masked sums and counts (scalar
+    tensors; the counts carry no gradient), the number of geometric queries
+    (pixels with a depth that project inside the neighbour's frustum), the
+    neighbour view's largest tile list and the NCC's selected 16x16 blocks
+    (0 without `ncc_compact`), the last three Python ints."""
+    if ncc_compact and (row_offset or median_depth.shape[0] != gray_r.shape[0]):
+        raise ValueError("the block-compacted NCC takes whole frames; a band "
+                         "of rows runs the dense NCC")
     dev = median_depth.device
     fx, fy, cx, cy = ref_cam.fx, ref_cam.fy, ref_cam.cx, ref_cam.cy
 
     # 1. backproject the median depth -> world points
-    pts_world = backproject(median_depth, ref_cam)
+    pts_world = backproject(median_depth, ref_cam, row_offset)
 
     # 2+3. the neighbour's median depth along each point's ray, reprojected
     geo_sum, geo_cnt, d_mask, weights, n_queries, near_mtc = _geo_terms(
         pts_world, median_depth, means3d, scales, rotations, opacities, alive,
-        ref_cam, near_cam, cfg, pixel_noise_th)
+        ref_cam, near_cam, cfg, pixel_noise_th, row_offset)
 
     # 4. NCC over the masked pixels (loss_utils.py:227-267); the double
     # `where` keeps the gradient finite at zero normals (empty pixels)
@@ -143,14 +155,30 @@ def patchmatch_losses(median_depth: torch.Tensor, normal: torch.Tensor,
     else:
         sample_fn = select(cfg, dev, ws.warp_sample, ws.bilinear_ref)
         cc, cc_valid = ncc_ops.warp_patch_ncc(*ncc_args, radius=patch_size,
-                                              sample_fn=sample_fn)
+                                              sample_fn=sample_fn, row_offset=row_offset)
         ncc = torch.clamp(1.0 - cc, 0.0, 2.0)
         ncc_mask = ((ncc < 0.9) & cc_valid & d_mask).detach()
         ncc_sum = torch.where(ncc_mask, ncc * weights, torch.zeros_like(ncc)).sum()
         ncc_cnt = ncc_mask.sum()
+    return ncc_sum, ncc_cnt, geo_sum, geo_cnt, n_queries, near_mtc, n_blocks
 
+
+def patchmatch_losses(median_depth: torch.Tensor, normal: torch.Tensor,
+                      means3d, scales, rotations, opacities, alive,
+                      ref_cam: Camera, near_cam: Camera,
+                      gray_r: torch.Tensor, gray_n: torch.Tensor,
+                      cfg: RasterConfig, pixel_noise_th: float = 1.0,
+                      patch_size: int = 3, ncc_compact: bool = False):
+    """PGSR losses of one reference view against one neighbour, from
+    `patchmatch_terms` over the whole frame (arguments as there).
+
+    Returns (ncc_loss, geo_loss, n_queries, near_max_tile_count, n_blocks):
+    two scalar tensors and the three Python ints of `patchmatch_terms`."""
+    ncc_sum, ncc_cnt, geo_sum, geo_cnt, n_queries, near_mtc, n_blocks = patchmatch_terms(
+        median_depth, normal, means3d, scales, rotations, opacities, alive, ref_cam,
+        near_cam, gray_r, gray_n, cfg, pixel_noise_th, patch_size, ncc_compact=ncc_compact)
     any_mask = geo_cnt > 0
-    zero = torch.zeros((), device=dev)
+    zero = torch.zeros((), device=median_depth.device)
     return (torch.where(any_mask, ncc_sum / torch.clamp_min(ncc_cnt, 1), zero),
             torch.where(any_mask, geo_sum / torch.clamp_min(geo_cnt, 1), zero),
             n_queries, near_mtc, n_blocks)

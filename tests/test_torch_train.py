@@ -225,7 +225,13 @@ def test_gof_checkpoint_loads_in_both_packages(app_run):
 
 
 def test_unported_options_raise(tmp_path):
-    for extra in (["--n_devices", "2"], ["--dist_num_processes", "2"]):
-        with pytest.raises(NotImplementedError):
-            ttrain.main(["-s", str(tmp_path / "none"), "-m", str(tmp_path / "out"),
-                         "--device", "cpu", *extra])
+    """No option of gsjax's train CLI is left unported (its last two, the
+    multi-device flags, since gsjax_torch.parallel): on a missing scene
+    `--n_devices 2` starts two ranks and ends with a rank's error rather
+    than waiting on its peer, and `--dist_num_processes` without a
+    coordinator joins no group and fails in this process."""
+    argv = ["-s", str(tmp_path / "none"), "-m", str(tmp_path / "out"), "--device", "cpu"]
+    with pytest.raises(RuntimeError, match=r"rank \d raised(.|\n)*no COLMAP sparse/"):
+        ttrain.main(argv + ["--n_devices", "2"])
+    with pytest.raises(ValueError, match="no COLMAP sparse/"):
+        ttrain.main(argv + ["--dist_num_processes", "2"])
