@@ -171,10 +171,41 @@ Phases, each printing one JSON line (any failure exits non-zero):
               200: the 2W x 2H mosaic) and TensorBoard (gsjax's scalar tags,
               or no event file where `torch.utils.tensorboard` does not
               import).
+  golden      recipe A of gsjax's `scripts/quality_r04.py` through the
+              port's golden CLI (`python -m gsjax_torch.golden_quality`):
+              the sphere scene, 28 views at 320x240, 2000 gaussians, 3000
+              steps with densification to 2250, opacity resets at 900 and
+              1800, the SH degree rising at 1000-3000, the multi-view terms
+              from 1500, then both meshes; a child process
+              (`chip_smoke.py --golden OUT ARGV`) started after
+              `multi_gpu` runs it beside the phases from `train_options` to
+              `diagnostics` and is joined before `timing`. It must meet
+              gsjax's tetra chamfer gate (<= 0.0625) with a finite test PSNR
+              and TSDF chamfer; on the scored model the TSDF route (median-
+              depth renders, fusion, the chamfer) is run again with B1 on
+              the 24 training views (the scored chamfer again) and on every
+              second view with B1 and with its plain version (B1's median
+              depth within the `parity` bounds, the two chamfers within
+              2e-4); B2 launched once a
+              step that trained, B6 once a multi-view step and B3 / B5 once
+              one with a point query (none right after an opacity reset),
+              each counting the device-step timing's own; B4 views x (1 + 8
+              binary-search steps) x chunks; `warp_sample_blocks` never. The
+              child seeds Python's `random` with 0 and runs the port's
+              default NCC. The PSNR gate (>= 34.0 dB) and the TSDF gate
+              (<= 0.025) are reported and not held: the port misses the
+              first on every draw of A (30.8-31.7 dB; gsjax's TPU record
+              36.75) and the second on some (0.0233-0.0241, once 0.03206;
+              gsjax 0.0184), misses recorded in ROADMAP queue C. The line gives the
+              scores, the launches by stage, the overflow retries, the
+              neighbour lists clamped at `max_per_tile`
+              (`mv_steps_near_list_clamped`), `loop_mean_ms`,
+              `step_ms_device`, the run's own wall clock and the seconds of
+              its stages.
 Then the `kernels` line (seven entries: B6 appears twice, as `warp_sample`
 on the dense NCC and as `warp_sample_blocks` on the compacted one; each with
 its launches by path: render, train, train_compact, mesh, evaluate, viewer,
-diagnostics, multi_gpu (summed over the two ranks); B1 and B2 also carry
+diagnostics, multi_gpu (summed over the two ranks), golden; B1 and B2 also carry
 `band_ms`, their band launches' times by partition), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
@@ -188,6 +219,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -3341,9 +3373,246 @@ def phase_multi_gpu(dev, keep, started):
     return launches
 
 
+# golden (recipe A of gsjax's scripts/quality_r04.py through the port's CLI):
+# the sphere, 3000 steps, 28 images at 320x240, 2000 gaussians, both meshes;
+# gsjax's sphere gates (scripts/golden_quality.py:363-371; its record
+# QUALITY_r04_main.json: 36.75 dB, 0.0184, 0.0144)
+GOLDEN_ARGV = ["--scene", "sphere", "--iterations", "3000", "--reset_interval", "900",
+               "--n_gauss", "2000", "--tetra", "--width", "320", "--height", "240",
+               "--sh_degree", "3", "--sg_degree", "2", "--densify_grad_threshold", "1e-4",
+               "--n_images", "28"]
+GOLDEN_GATES = {"test_psnr_db_min": 34.0, "chamfer_max": 0.025, "chamfer_tetra_max": 0.0625}
+# the gate the phase holds; the port misses the PSNR gate on every draw of A
+# and the TSDF gate on some (ROADMAP queue C): both are reported
+GOLDEN_HELD = ("chamfer_tetra_max",)
+# the TSDF route on the scored model, B1 against its plain version: the two
+# routes' chamfers agree within TSDF_TWIN_TOL; the route run again with B1
+# gives the scored chamfer to its JSON's five decimals
+TSDF_TWIN_TOL = 2e-4
+# the plain version renders every GOLDEN_TWIN_STRIDE-th training view (its
+# bisection over ~15k-pair lists takes ~5 s a view on the card)
+GOLDEN_TWIN_STRIDE = 2
+GOLDEN_BINARY_STEPS = 8     # the golden CLI's tetra route
+GOLDEN_TIMEOUT = 900
+GOLDEN_DIR = os.path.join(ROOT, "build", "chip_smoke_golden")
+# the phases that run while the golden child trains (host-clock phases)
+GOLDEN_BESIDE = ("train_options", "evaluate", "viewer", "diagnostics")
+
+
+def golden_run(out_path, argv):
+    """`chip_smoke.py --golden OUT [--twin-stride N] ARGV...`: the golden
+    CLI's `main` on ARGV (`gsjax_torch.golden_quality`), with the wrappers'
+    launch counts read at each of its stages and B4's calls timed by CUDA
+    events, then `golden_tsdf_twin` on the scored model over every N-th
+    training view (default GOLDEN_TWIN_STRIDE); writes them, the result and
+    the run's statistics to OUT and prints the launches beside the result."""
+    stride = GOLDEN_TWIN_STRIDE
+    if argv[:1] == ["--twin-stride"]:
+        stride, argv = int(argv[1]), argv[2:]
+    import torch
+
+    from gsjax_torch import golden_quality
+    from gsjax_torch.ops import sample_cuda
+
+    random.seed(0)      # one fixed view order (the CLI leaves `random` unseeded)
+    reset_launches()
+    by_stage, mark, scored = {}, {}, {}
+
+    def on_stage(name, trainer):
+        torch.cuda.synchronize()
+        now = read_launches()
+        if mark:
+            by_stage[mark["name"]] = {k: now[k] - mark["counts"][k] for k in now}
+        mark.update(name=name, counts=now)
+        scored["trainer"] = trainer
+
+    with timed_calls(sample_cuda, "integrate_fwd") as b4_calls:
+        result, stats = golden_quality.main(argv, on_stage=on_stage)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    # after the counts are read: the comparison's launches do not count
+    twin = golden_tsdf_twin(scored["trainer"], golden_quality.build_parser().parse_args(argv),
+                            stride)
+    with open(out_path, "w") as f:
+        json.dump({"result": result, "stats": stats, "launches": launches,
+                   "launches_by_stage": by_stage, "b4_calls": len(b4_calls),
+                   "b4_device_s": sum(a.elapsed_time(b) for a, b in b4_calls) / 1e3,
+                   "tsdf_twin": twin}, f)
+    print(json.dumps({"launches": launches, "tsdf_twin": twin}), flush=True)
+    return 0
+
+
+def golden_tsdf_twin(trainer, args, stride=GOLDEN_TWIN_STRIDE):
+    """The scored model's TSDF route (median-depth renders, fusion at voxel
+    0.02, the largest cluster, the chamfer) with B1 on every training view,
+    as the golden CLI scored it, and on every `stride`-th view with B1 and
+    with its plain version: those views' median depth, colour and alpha
+    against each other, both routes' chamfers, and the largest tile list
+    against the cap the renders ran with."""
+    import torch
+
+    from gsjax_torch import golden_quality
+    from gsjax_torch.mesh.extract import extract_mesh_tsdf
+
+    views = trainer.scene.train_views
+    sub = list(range(0, len(views), stride))
+    n_cluster = args.cluster_to_keep or golden_quality.CLUSTERS[args.scene]
+    samples = golden_quality.surface_samples(args.scene)
+
+    def renders(backend, ids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [trainer.render_view(views[i], require_depth=True,
+                                    min_opacity=args.mesh_min_opacity) for i in ids]
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    def route(outs, ids, render_s):
+        cached = iter(outs)
+        mesh = extract_mesh_tsdf(lambda v: next(cached), [views[i] for i in ids],
+                                 voxel_size=0.02, depth_trunc=6.0,
+                                 cluster_to_keep=n_cluster, verbose=False)
+        verts = mesh["post"][0] if len(mesh["post"][0]) else mesh["raw"][0]
+        ch, d2s, s2d, nv = golden_quality.chamfer_of(verts, args.scene, None, samples)
+        return {"views": len(ids), "render_s": render_s, "chamfer": ch, "chamfer_d2s": d2s,
+                "chamfer_s2d": s2d, "mesh_vertices": nv, "grid": list(mesh["grid"])}
+
+    ko, kernel_s = renders("cuda", range(len(views)))
+    kernel_cfg = trainer.raster_cfg
+    trainer.raster_cfg = lambda rd: dataclasses.replace(kernel_cfg(rd), backend="torch")
+    try:
+        to, twin_s = renders("torch", sub)
+    finally:
+        del trainer.raster_cfg
+    ko_sub = [ko[i] for i in sub]
+    md_close = torch.cat([torch.isclose(k["median_depth"], t["median_depth"], atol=MD_ATOL,
+                                        rtol=MD_RTOL).reshape(-1) for k, t in zip(ko_sub, to)])
+
+    def max_err(key):
+        return max(float((k[key] - t[key]).abs().max()) for k, t in zip(ko_sub, to))
+
+    return {"scored": route(ko, range(len(views)), kernel_s),
+            "kernel": route(ko_sub, sub, None), "twin": route(to, sub, twin_s),
+            "median_depth_close_frac": float(md_close.float().mean()),
+            "median_depth_max_abs_err": max_err("median_depth"),
+            "color_max_abs_err": max_err("render"), "alpha_max_abs_err": max_err("alpha"),
+            "max_tile_count": max(int(k["max_tile_count"]) for k in ko),
+            "max_per_tile": int(trainer.max_per_tile)}
+
+
+def start_golden():
+    """Start the golden child (`chip_smoke.py --golden`), which trains beside
+    the host-clock phases; its scene, model and log go under GOLDEN_DIR.
+    Returns (process, OUT path, log path, start time)."""
+    shutil.rmtree(GOLDEN_DIR, ignore_errors=True)
+    os.makedirs(GOLDEN_DIR)
+    out = os.path.join(GOLDEN_DIR, "golden.json")
+    log = os.path.join(GOLDEN_DIR, "golden.log")
+    env = dict(os.environ, PYTHONPATH=ROOT, TMPDIR=GOLDEN_DIR)
+    argv = GOLDEN_ARGV + ["--out", os.path.join(GOLDEN_DIR, "quality.json")]
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                 "--golden", out, *argv], cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    return proc, out, log, time.perf_counter()
+
+
+def phase_golden(started):
+    """Join the golden child and hold its run: gsjax's tetra chamfer gate, a
+    finite test PSNR and TSDF chamfer (their gates are reported, not held:
+    the port misses them, ROADMAP queue C); the TSDF route on the scored
+    model with B1 against its plain version (`golden_tsdf_twin`); B2
+    launched once a step that trained (an overflowed attempt stops after the
+    forward), counting the device-step timing's own steps; B6 once a
+    multi-view step and B3 and B5 once a multi-view step with a query,
+    counted the same way; B4 views x (1 + 8 binary-search steps) x chunks of
+    2^20 points; `warp_sample_blocks` never. Returns {kernel: launches}."""
+    proc, out, log, t0 = started
+    try:
+        rc = proc.wait(timeout=GOLDEN_TIMEOUT)
+    finally:
+        stop([proc])
+    with open(log) as f:
+        tail = f.read()[-4000:]
+    check(rc == 0, f"golden child exited {proc.returncode}:\n{tail}")
+    with open(out) as f:
+        run = json.load(f)
+    res, st, launches = run["result"], run["stats"], run["launches"]
+    steps, dev = st["steps_trained"], st["device_step"]
+    mv_want = st["mv_steps"] + (dev["steps"] if dev["mv"] else 0)
+    # B3 / B5 launch on a non-empty query set only (none right after an
+    # opacity reset, before any pixel has a median depth)
+    query_want = st["mv_steps_with_queries"] + dev["steps_with_queries"]
+    tet = st["tetra"]
+    chunks = lambda m: -(-m // MESH_CHUNK)
+    want_b4 = tet["views"] * (chunks(tet["counts"]["points"])
+                              + GOLDEN_BINARY_STEPS * chunks(tet["counts"]["edges"]))
+    emit({"phase": "golden", "argv": GOLDEN_ARGV, "pass": res["pass"],
+          "thresholds": res["thresholds"], "gates_held": list(GOLDEN_HELD),
+          "psnr_gate_met": res["test_psnr_db"] >= GOLDEN_GATES["test_psnr_db_min"],
+          "tsdf_gate_met": res["chamfer"] <= GOLDEN_GATES["chamfer_max"],
+          **{k: res[k] for k in ("test_psnr_db", "chamfer", "chamfer_d2s", "chamfer_s2d",
+                                 "chamfer_tetra", "mesh_vertices", "n_gaussians_final",
+                                 "n_train_views", "n_test_views", "loop_iters_per_s",
+                                 "loop_mean_ms", "step_ms_device")},
+          "golden_wall_s": res["wall_s"], "phase_s": time.perf_counter() - t0,
+          "beside": GOLDEN_BESIDE, "steps": steps, "mv_steps": st["mv_steps"],
+          "mv_steps_with_queries": st["mv_steps_with_queries"],
+          "attempts": st["attempts"], "overflow_retries": st["attempts"] - steps,
+          "retried_at": st["retried_at"], "mv_max_tile_count": st["mv_max_tile_count"],
+          "mv_steps_near_list_clamped": st["mv_steps_near_list_clamped"],
+          "near_list_clamped_at": st["near_list_clamped_at"],
+          "max_per_tile_growth": st["max_per_tile_growth"],
+          "capacity_growth": st["capacity_growth"], "densify_rounds": st["densify_rounds"],
+          "opacity_resets": st["opacity_resets"], "device_step": dev,
+          "launches": launches, "launches_by_stage": run["launches_by_stage"],
+          "b4_launches_expected": want_b4, "b4_calls": run["b4_calls"],
+          "b4_device_s": run["b4_device_s"], "seconds": st["seconds"],
+          "steps_by_kind": st["steps_by_kind"], "tsdf": st["tsdf"], "tetra": tet,
+          "tsdf_twin": run["tsdf_twin"], "device": st["device"]})
+    check(res["thresholds"] == GOLDEN_GATES, f"gates {res['thresholds']}")
+    check(np.isfinite(res["test_psnr_db"]) and np.isfinite(res["chamfer"])
+          and res["chamfer_tetra"] is not None
+          and res["chamfer_tetra"] <= GOLDEN_GATES["chamfer_tetra_max"],
+          f"recipe A misses gsjax's tetra chamfer gate: PSNR {res['test_psnr_db']}, "
+          f"chamfer {res['chamfer']}, tetra {res['chamfer_tetra']}")
+    twin = run["tsdf_twin"]
+    check(twin["median_depth_close_frac"] >= MD_FRAC
+          and twin["median_depth_max_abs_err"] <= MD_MAX,
+          f"B1's median depth on the scored model against its plain version: close on "
+          f"{twin['median_depth_close_frac']}, largest error {twin['median_depth_max_abs_err']}")
+    check(abs(twin["scored"]["chamfer"] - res["chamfer"]) <= 1e-5,
+          f"the TSDF route run again reads {twin['scored']['chamfer']}, scored {res['chamfer']}")
+    check(abs(twin["kernel"]["chamfer"] - twin["twin"]["chamfer"]) <= TSDF_TWIN_TOL,
+          f"TSDF chamfer with B1 {twin['kernel']['chamfer']}, with its plain version "
+          f"{twin['twin']['chamfer']}")
+    check(steps == 3000 and st["resumed_at"] is None, f"{steps} steps, resumed at "
+          f"{st['resumed_at']}")
+    check(launches["blend_bwd"] == steps + dev["steps"],
+          f"blend_bwd launched {launches['blend_bwd']} times for {steps} steps and "
+          f"{dev['steps']} timed ones")
+    check(run["launches_by_stage"]["train"]["blend_fwd"] == st["attempts"],
+          f"blend_fwd launched {run['launches_by_stage']['train']['blend_fwd']} times "
+          f"in training for {st['attempts']} attempts")
+    check(launches["warp_sample"] == mv_want,
+          f"warp_sample launched {launches['warp_sample']} times for {mv_want} multi-view steps")
+    for name in ("sample_fwd", "sample_bwd"):
+        check(launches[name] == query_want,
+              f"{name} launched {launches[name]} times for {query_want} multi-view steps "
+              f"with queries")
+    check(launches["integrate_fwd"] == want_b4 == run["b4_calls"],
+          f"integrate_fwd launched {launches['integrate_fwd']} times, want {want_b4}")
+    check(launches["warp_sample_blocks"] == 0,
+          f"warp_sample_blocks launched {launches['warp_sample_blocks']} times")
+    shutil.rmtree(GOLDEN_DIR, ignore_errors=True)
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--golden"]:
+        return golden_run(sys.argv[2], sys.argv[3:])
     import torch
 
     if not torch.cuda.is_available():
@@ -3390,13 +3659,21 @@ def main():
         mgpu_launches = phase_multi_gpu(dev, keep, started)
     finally:
         stop(started[0])
-    compact_launches = phase_train(dev, options=True)
-    eval_launches = phase_evaluate(dev)
-    shutil.rmtree(WORK, ignore_errors=True)
-    scene_dir = write_train_scene(dev)
-    viewer_launches = phase_viewer(dev, scene_dir)
-    diag_launches = phase_diagnostics(dev, scene_dir)
-    shutil.rmtree(WORK, ignore_errors=True)
+    # the golden child trains beside the host-clock phases (GOLDEN_BESIDE),
+    # after the CUDA-event timings and the multi_gpu ranks it could disturb,
+    # and is joined before `timing` and `timing_train`
+    golden = start_golden()
+    try:
+        compact_launches = phase_train(dev, options=True)
+        eval_launches = phase_evaluate(dev)
+        shutil.rmtree(WORK, ignore_errors=True)
+        scene_dir = write_train_scene(dev)
+        viewer_launches = phase_viewer(dev, scene_dir)
+        diag_launches = phase_diagnostics(dev, scene_dir)
+        shutil.rmtree(WORK, ignore_errors=True)
+        golden_launches = phase_golden(golden)
+    finally:
+        stop([golden[0]])
     kernel_ms, bound = phase_timing(dev, twin_ms)
     b2_ms, b2_bound = phase_timing_train(dev)
 
@@ -3404,7 +3681,8 @@ def main():
         return {"render": render, "train": train_launches[name],
                 "train_compact": compact_launches[name], "mesh": mesh_launches[name],
                 "evaluate": eval_launches[name], "viewer": viewer_launches[name],
-                "diagnostics": diag_launches[name], "multi_gpu": mgpu_launches[name]}
+                "diagnostics": diag_launches[name], "multi_gpu": mgpu_launches[name],
+                "golden": golden_launches[name]}
 
     def band_ms(kernel):
         """B1 / B2 on tile-row lists: each partition's band times and sum."""

@@ -268,9 +268,11 @@ def write_scene_artifacts(model_path: str, info: SceneInfo) -> None:
 
 
 def build_nearest_view_graph(views, max_angle=30.0, min_dis=0.01, max_dis=1.5,
-                             multi_view_num=8):
+                             multi_view_num=8, radius: float | None = None):
     """Nearest-view selection by lexsort(angle, distance) with thresholds
-    (scene/__init__.py:83-118). Sets views[i].nearest_ids."""
+    (scene/__init__.py:83-118). Sets views[i].nearest_ids. `min_dis` and
+    `max_dis` are absolute distances. `radius` is accepted and unused, as in
+    gsjax, whose docstring says it scales them (ROADMAP queue C)."""
     centers = np.stack([v.camera_center for v in views], axis=0)
     rays = np.stack([v.R @ np.array([0.0, 0.0, 1.0]) for v in views], axis=0)
     rays = rays / np.maximum(np.linalg.norm(rays, axis=1, keepdims=True), 1e-12)

@@ -214,7 +214,7 @@ def _render_views(g, poses, fovx, fovy, width, height, max_per_tile, device):
 
 def write_rendered_colmap(root, n_images=6, width=96, height=64,
                           n_gauss=250, seed=0, gaussians=None, pose_fn=None,
-                          max_per_tile=1 << 9, points_stride=3,
+                          points_noise=0.0, max_per_tile=1 << 9, points_stride=3,
                           device: str | torch.device | None = None):
     """Render a known gaussian scene from an arc of poses and save it as a
     binary COLMAP dataset. Returns the gaussian tuple used.
@@ -222,8 +222,10 @@ def write_rendered_colmap(root, n_images=6, width=96, height=64,
     `gaussians` overrides the default blob scene (a 5-tuple as returned by
     make_gaussians or sphere_gaussians); `pose_fn(i, n)` overrides arc_pose. The sparse points
     (what training initialises from) are every `points_stride`-th gaussian
-    centre with its DC colour. Renders on `device` (cuda unless asked for
-    the CPU)."""
+    centre with its DC colour; `points_noise` > 0 jitters them by
+    normal(0, points_noise) from `default_rng(seed + 1)`, gsjax's stream, so
+    that training does not start from the exact answer. Renders on `device`
+    (cuda unless asked for the CPU)."""
     from PIL import Image
 
     sparse = os.path.join(root, "sparse", "0")
@@ -260,6 +262,9 @@ def write_rendered_colmap(root, n_images=6, width=96, height=64,
                 os.path.join(imgdir, f"img_{i:03d}.png"))
 
     sub = means[::points_stride]
+    if points_noise > 0:
+        sub = sub + np.random.default_rng(seed + 1).normal(
+            0, points_noise, sub.shape).astype(np.float32)
     cols = np.clip(shs[::points_stride, 0] * 0.282 + 0.5, 0, 1)
     rec = np.zeros(len(sub), np.dtype([
         ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),

@@ -313,6 +313,22 @@ class Trainer:
 
     # --- main loop -----------------------------------------------------------
 
+    def loss_config(self, reg_on: bool, mv_on: bool) -> LossConfig:
+        """The step's loss terms and NCC form. GSJAX_NCC_COMPACT is read, as
+        gsjax reads it, only for a step with a neighbour; the sharded step
+        keeps the dense NCC, as gsjax's (loop.py:418-421)."""
+        o = self.opt
+        ncc_compact = mv_on and not self.sharded and \
+            os.environ.get("GSJAX_NCC_COMPACT", "0") not in ("0", "")
+        return LossConfig(lambda_dssim=o.lambda_dssim,
+                          lambda_depth_normal=o.lambda_depth_normal,
+                          lambda_mv_ncc=o.lambda_multi_view_ncc,
+                          lambda_mv_geo=o.lambda_multi_view_geo,
+                          reg_on=reg_on, mv_on=mv_on,
+                          pixel_noise_th=o.multi_view_pixel_noise_th,
+                          patch_size=o.multi_view_patch_size, appearance=self.app.kind,
+                          ncc_compact=ncc_compact, nan_stats=self.nan_probe)
+
     def step(self):
         self.iteration += 1
         it = self.iteration
@@ -327,18 +343,7 @@ class Trainer:
         if reg_on and view.nearest_ids and (
                 o.lambda_multi_view_ncc > 0 or o.lambda_multi_view_geo > 0):
             near = self.scene.train_views[random.choice(view.nearest_ids)]
-        # the sharded step keeps the dense NCC, as gsjax's (loop.py:418-421)
-        ncc_compact = near is not None and not self.sharded and \
-            os.environ.get("GSJAX_NCC_COMPACT", "0") not in ("0", "")
-        lcfg = LossConfig(lambda_dssim=o.lambda_dssim,
-                          lambda_depth_normal=o.lambda_depth_normal,
-                          lambda_mv_ncc=o.lambda_multi_view_ncc,
-                          lambda_mv_geo=o.lambda_multi_view_geo,
-                          reg_on=reg_on, mv_on=near is not None,
-                          pixel_noise_th=o.multi_view_pixel_noise_th,
-                          patch_size=o.multi_view_patch_size,
-                          appearance=self.app.kind, ncc_compact=ncc_compact,
-                          nan_stats=self.nan_probe)
+        lcfg = self.loss_config(reg_on, near is not None)
         step_args = {}
         if near is not None:
             step_args = dict(near_cam=near.camera, gray_r=self.gray_for(view),
