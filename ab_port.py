@@ -198,8 +198,11 @@ def main(argv=None):
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
     cfg_nd = RasterConfig(sh_degree=3, require_depth=False, max_per_tile=1 << 12)
     cam = cs.bench_camera(w, h, dev)
-    g = cs.bench_gaussians(n)
-    gt = torch.as_tensor(cs.bench_gt(n, w, h), device=dev)
+    if hasattr(cs, "bench_inputs"):
+        *g, gt = cs.bench_inputs(w, h, n)
+    else:                    # a checkout before the draws moved to gsjax_torch.bench
+        g, gt = cs.bench_gaussians(n), cs.bench_gt(n, w, h)
+    gt = torch.as_tensor(gt, device=dev)
     scene, _, binning, feats = cs.stages(g, cam, cfg, dev)
     bg = torch.zeros(3, device=dev)
     lists = (feats, binning.tile_start, binning.tile_count)

@@ -202,12 +202,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (`mv_steps_near_list_clamped`), `loop_mean_ms`,
               `step_ms_device`, the run's own wall clock and the seconds of
               its stages.
+  bench       the three benchmark entries as subprocesses, as a user runs
+              them, after `timing_train` and beside nothing:
+              `python3 bench_torch.py` three times (each value, median and
+              spread; the warm-up loss within 1e-5 of `timing_train`'s bench
+              step on the same draws, the rays/s within a factor of 2 of
+              that step's); `python3 bench_reg_torch.py` three times and once with
+              GSJAX_NCC_COMPACT=1 (`mv_queries`, `mv_blocks`, ncc, geo; each
+              run's first step equal to the phase's own), with the first
+              step held against the same step on the plain versions on the
+              card (loss, ncc, geo within 1e-3, `mv_queries` within 1e-4 of
+              the frame); `GSJAX_SCALING_DEVICES=2 python3
+              bench_scaling_torch.py` in modes `train` and `views` (two ranks
+              sharing the card over gloo: efficiency null, the metric
+              `*_correctness_2dev`, each row's `iter_s`; the
+              SCALING_torch*.json it writes removed). Each entry must end in
+              its JSON line with a positive value and no `error`; the
+              kernels' launches come from the children's diagnostics lines.
 Then the `kernels` line (seven entries: B6 appears twice, as `warp_sample`
 on the dense NCC and as `warp_sample_blocks` on the compacted one; each with
 its launches by path: render, train, train_compact, mesh, evaluate, viewer,
-diagnostics, multi_gpu (summed over the two ranks), golden; B1 and B2 also carry
-`band_ms`, their band launches' times by partition), the
-nvidia-smi line, and last
+diagnostics, multi_gpu (summed over the two ranks), golden, bench (summed
+over every entry run); B1 and B2 also carry `band_ms`, their band launches'
+times by partition), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
 `build/chip_smoke/` and removed at the end.
@@ -457,24 +474,12 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def bench_gaussians(n, seed=0, rng=None):
-    """bench.py's scene: n gaussians around z=5 (bench.py:59-66)."""
-    rng = np.random.default_rng(seed) if rng is None else rng
-    means = rng.normal(0, 1.2, (n, 3)).astype(np.float32)
-    means[:, 2] += 5.0
-    scales = np.exp(rng.normal(-3.3, 0.3, (n, 3))).astype(np.float32)
-    quats = rng.normal(0, 1, (n, 4)).astype(np.float32)
-    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
-    opac = (1 / (1 + np.exp(-rng.normal(0.0, 1.0, (n, 1))))).astype(np.float32)
-    shs = rng.normal(0, 0.3, (n, 16, 3)).astype(np.float32)
-    return means, scales, quats, opac, shs
+def bench_inputs(width, height, n):
+    """bench.py's draws (`gsjax_torch.bench.bench_inputs`): means, scales,
+    quats, opacity, SH, then the target image."""
+    from gsjax_torch import bench
 
-
-def bench_gt(n, width, height):
-    """bench.py's target image: the next draw of its seeded stream (:73)."""
-    rng = np.random.default_rng(0)
-    bench_gaussians(n, rng=rng)
-    return rng.uniform(0, 1, (height, width, 3)).astype(np.float32)
+    return bench.bench_inputs(width, height, n)
 
 
 def bench_params(g, device):
@@ -605,7 +610,7 @@ def phase_parity(width, height, n, dev):
 
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
     cam = bench_camera(width, height, dev)
-    args, _, binning, feats = stages(bench_gaussians(n), cam, cfg, dev)
+    args, _, binning, feats = stages(bench_inputs(width, height, n)[:5], cam, cfg, dev)
     bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
     ko, to = (render(*args, cam, dataclasses.replace(cfg, backend=b), bg)
               for b in ("cuda", "torch"))
@@ -673,7 +678,7 @@ def phase_parity_bwd(width, height, n, dev, require_depth):
 
     cfg = RasterConfig(sh_degree=3, require_depth=require_depth, max_per_tile=1 << 12)
     cam = bench_camera(width, height, dev)
-    _, _, binning, feats = stages(bench_gaussians(n), cam, cfg, dev)
+    _, _, binning, feats = stages(bench_inputs(width, height, n)[:5], cam, cfg, dev)
     bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
     lists = (feats, binning.tile_start, binning.tile_count)
     planes = render_cuda.blend_fwd(*lists, width, height, cam.fx, cam.fy, bg, cfg)
@@ -745,7 +750,7 @@ def phase_slice(dev, n_views=2, width=1920, height=1080, n=100_000):
     shutil.rmtree(WORK, ignore_errors=True)
     scene_dir = os.path.join(WORK, "scene")
     model_dir = os.path.join(WORK, "model")
-    g = bench_gaussians(n)
+    g = bench_inputs(width, height, n)[:5]
     t0 = time.perf_counter()
     save_ply(os.path.join(model_dir, "point_cloud", "iteration_30000",
                           "point_cloud.ply"), *bench_params(g, dev))
@@ -806,22 +811,17 @@ def phase_slice(dev, n_views=2, width=1920, height=1080, n=100_000):
     return launches
 
 
-def _wrappers():
-    from gsjax_torch.ops import sample_cuda, warp_sample
-    from gsjax_torch.ops.raster import render_cuda
-
-    return (render_cuda.blend_fwd, render_cuda.blend_bwd, sample_cuda.sample_fwd,
-            sample_cuda.integrate_fwd, sample_cuda.sample_bwd, warp_sample.warp_sample,
-            warp_sample.warp_sample_blocks)
-
-
 def reset_launches():
-    for fn in _wrappers():
-        fn.launches = 0
+    from gsjax_torch.utils import benchsync
+
+    benchsync.reset_launches()
 
 
 def read_launches():
-    return {fn.__name__: fn.launches for fn in _wrappers()}
+    """{kernel wrapper: launches} of this process."""
+    from gsjax_torch.utils import benchsync
+
+    return benchsync.launch_counts()
 
 
 def views_loss(trainer, mapped=False):
@@ -1116,7 +1116,7 @@ def phase_timing(dev, twin_ms, width=1920, height=1080, n=100_000):
 
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
     cam = bench_camera(width, height, dev)
-    args, prep, binning, feats = stages(bench_gaussians(n), cam, cfg, dev)
+    args, prep, binning, feats = stages(bench_inputs(width, height, n)[:5], cam, cfg, dev)
     bg = torch.zeros(3, device=dev)
     pre_ms = event_ms(lambda: preprocess(*args, None, None, None, cam, cfg))
     bin_ms = event_ms(lambda: bin_gaussians(prep, cfg, width, height))
@@ -1137,7 +1137,7 @@ def phase_timing(dev, twin_ms, width=1920, height=1080, n=100_000):
     near = phase_search("blend_fwd", lambda s, c: render_cuda.blend_fwd(
         feats, binning.tile_start, binning.tile_count, width, height, cam.fx, cam.fy, bg,
         cfg, slots=s, counters=c), dev, width=width, height=height, gaussians=n, scale=1.0)
-    g_far, cfg_far = far_scene(bench_gaussians(n), cfg)
+    g_far, cfg_far = far_scene(bench_inputs(width, height, n)[:5], cfg)
     _, _, b_far, f_far = stages(g_far, cam, cfg_far, dev)
     far = phase_search("blend_fwd", lambda s, c: render_cuda.blend_fwd(
         f_far, b_far.tile_start, b_far.tile_count, width, height, cam.fx, cam.fy, bg,
@@ -1183,9 +1183,10 @@ def bwd_bound_ms(planes, feats, binning, cfg, width, height):
 
 def phase_timing_train(dev, width=1920, height=1080, n=100_000):
     """B2, bench.py's fwd+bwd and train steps at 1080p / 100k; returns
-    (B2 ms, B2 bound)."""
+    (B2 ms, B2 bound, {bench.py's loss, its rays/s})."""
     import torch
 
+    from gsjax_torch import bench
     from gsjax_torch.model import appearance as app_lib
     from gsjax_torch.model import gaussians as gm
     from gsjax_torch.ops.raster import RasterConfig, render, render_cuda
@@ -1198,8 +1199,8 @@ def phase_timing_train(dev, width=1920, height=1080, n=100_000):
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
     cfg_nd = dataclasses.replace(cfg, require_depth=False)
     cam = bench_camera(width, height, dev)
-    g = bench_gaussians(n)
-    gt = torch.as_tensor(bench_gt(n, width, height), device=dev)
+    *g, gt = bench_inputs(width, height, n)
+    gt = torch.as_tensor(gt, device=dev)
     args, prep, binning, feats = stages(g, cam, cfg, dev)
     bg = torch.zeros(3, device=dev)
     lists = (feats, binning.tile_start, binning.tile_count)
@@ -1219,15 +1220,18 @@ def phase_timing_train(dev, width=1920, height=1080, n=100_000):
     bound = bwd_bound_ms(b2["depth"][0], feats, binning, cfg, width, height)
 
     # bench.py's step: render + 0.8 L1 + 0.2 (1 - SSIM) + 1e-6 mean depth, fwd+bwd
+    # (max_per_tile 1 << 12 here, bench.py's 1 << 11: the largest list, 1100,
+    # fits either, so neither clamps)
     leaves = [a.clone().requires_grad_(True) for a in args]
+    step_loss = []
 
     def fwd_bwd():
-        o = render(*leaves, cam, cfg, bg)
-        loss = 0.8 * losses.l1_loss(o["render"], gt) + \
-            0.2 * (1 - losses.ssim(o["render"], gt)) + 1e-6 * o["median_depth"].mean()
-        return torch.autograd.grad(loss, leaves)
+        loss, grads, _ = bench.loss_and_grads(leaves, gt, cam, cfg, bg)
+        step_loss[:] = [loss]
+        return grads
 
     out["fwd_bwd_ms"] = event_ms(fwd_bwd, reps=5)
+    out["fwd_bwd_loss"] = float(step_loss[0].detach())
     out["raster_fwd_bwd_rays_per_s_1080p"] = width * height / (out["fwd_bwd_ms"] * 1e-3)
 
     # stages of one step, timed apart (reg on)
@@ -1285,7 +1289,8 @@ def phase_timing_train(dev, width=1920, height=1080, n=100_000):
         out[f"train_step_app_{kind}_ms"] = event_ms(step, reps=5)
     emit({"phase": "timing_train", "width": width, "height": height, "gaussians": n,
           "pairs": binning.num_live, **out, "b2_bound": bound})
-    return out["b2_depth_ms"], bound
+    return out["b2_depth_ms"], bound, {"loss": out["fwd_bwd_loss"],
+                                       "rays_per_s": out["raster_fwd_bwd_rays_per_s_1080p"]}
 
 
 def mv_scene(width, height, n, dev, ref=2, near=3, n_views=6):
@@ -1301,7 +1306,7 @@ def mv_scene(width, height, n, dev, ref=2, near=3, n_views=6):
     from gsjax_torch.ops.raster import Camera, RasterConfig, render
     from gsjax_torch.train.multiview import _geo_terms, backproject
 
-    means, scales, quats, opac, shs = bench_gaussians(n)
+    means, scales, quats, opac, shs, _ = bench_inputs(width, height, n)
     fov = (focal2fov(0.9 * width, width), focal2fov(0.9 * width, height))
     cams = [Camera.create(bench_pose(i, n_views)[0].T, bench_pose(i, n_views)[1], *fov,
                           width, height, device=dev) for i in (ref, near)]
@@ -1735,12 +1740,13 @@ def phase_timing_mv(dev, sc, qr, res, g, width=1920, height=1080, n=100_000):
         out[f"{name}_fwd_bwd_peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
 
     # train steps with the multi-view losses (the step ends in a host read)
-    params, aux = bench_params(bench_gaussians(n), dev)
+    *gauss, gt = bench_inputs(width, height, n)
+    params, aux = bench_params(gauss, dev)
     adam = gm.adam_init(params)
     lrs = dict(xyz=1.6e-4, features_dc=0.0025, features_rest=0.0001, opacity=0.05,
                scaling=0.005, rotation=0.001, sg_axis=0.002, sg_sharpness=0.095,
                sg_color=0.00064)
-    gt = torch.as_tensor(bench_gt(n, width, height), device=dev)
+    gt = torch.as_tensor(gt, device=dev)
     bg = torch.zeros(3, device=dev)
     mv = dict(near_cam=near, gray_r=sc["gray"][0], gray_n=gray_n)
     step = lambda: train_step(params, aux, adam, ref, gt, bg, lrs, cfg,
@@ -2315,7 +2321,7 @@ def write_train_scene(dev, n_views=6, width=1920, height=1080, n=100_000):
 
     scene_dir = os.path.join(WORK, "train_scene")
     write_rendered_colmap(scene_dir, n_images=n_views, width=width, height=height,
-                          gaussians=bench_gaussians(n), pose_fn=bench_pose,
+                          gaussians=bench_inputs(width, height, n)[:5], pose_fn=bench_pose,
                           max_per_tile=1 << 12, points_stride=1, device=dev)
     return scene_dir
 
@@ -2522,7 +2528,7 @@ def phase_viewer(dev, scene_dir, n=100_000, web_size=(WEB_W, WEB_H)):
     # -- the web viewer's local mode on a 100k-gaussian PLY ------------------
     ply_dir = os.path.join(WORK, "web_model")
     save_ply(os.path.join(ply_dir, "point_cloud", "iteration_30000", "point_cloud.ply"),
-             *bench_params(bench_gaussians(n), dev))
+             *bench_params(bench_inputs(VIEW_W, VIEW_H, n)[:5], dev))
     dump_cfg_args(ply_dir, Namespace(sh_degree=3, sg_degree=0, kernel_size=0.0,
                                      white_background=False))
     model = LocalModel(ply_dir, device=dev)
@@ -2910,7 +2916,7 @@ def phase_multi_gpu_bands(dev, width=1920, height=1080, n=100_000):
 
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
     cam = bench_camera(width, height, dev)
-    _, prep, full, feats = stages(bench_gaussians(n), cam, cfg, dev)
+    _, prep, full, feats = stages(bench_inputs(width, height, n)[:5], cam, cfg, dev)
     tiles_x, tiles_y = cfg.grid(width, height)
     bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
     tail = (width, height, cam.fx, cam.fy, bg, cfg)
@@ -3044,7 +3050,7 @@ def _serve_rank(rank, width, height, n, angles):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
-    params, aux = bench_params(bench_gaussians(n), dev)
+    params, aux = bench_params(bench_inputs(width, height, n)[:5], dev)
     bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
     def turn(a):                         # bench_camera turned by `a` about y
         c, s = np.cos(a), np.sin(a)
@@ -3398,6 +3404,33 @@ GOLDEN_DIR = os.path.join(ROOT, "build", "chip_smoke_golden")
 # the phases that run while the golden child trains (host-clock phases)
 GOLDEN_BESIDE = ("train_options", "evaluate", "viewer", "diagnostics")
 
+# The `bench` phase: the three benchmark entries run as a user runs them,
+# one after the other and beside nothing (their times are CUDA events).
+# bench_torch.py and bench_reg_torch.py run BENCH_RUNS times each (the
+# median and spread of their values), bench_reg_torch.py once more with
+# GSJAX_NCC_COMPACT=1, bench_scaling_torch.py with SCALING_RANKS ranks
+# sharing the card in modes `train` and `views`. bench_torch's warm-up loss
+# is timing_train's bench step on the same draws (max_per_tile 1 << 11
+# against 1 << 12 there; neither clamps): within BENCH_LOSS_RTOL, and its
+# rays/s within a factor BENCH_RAYS_FACTOR of timing_train's (outside it one
+# of the two does not time what it says). bench_reg's first step on the
+# kernels against the same step on their plain versions on the card: the
+# loss, ncc and geo within REG_RTOL (tests/test_torch_train_step.py's bound
+# on the multi-view step), mv_queries within REG_QUERIES_FRAC of the
+# frame's pixels (pixels whose median depth B1 and its plain version find on
+# either side of the range, MD_FRAC); each run's first step equal to it
+# (the same kernels, the same inputs) within BENCH_LOSS_RTOL. Read on the
+# card (H100): bench_torch's loss equal to timing_train's in every digit;
+# the reg step's loss and ncc equal to the plain versions' in every digit,
+# geo 1.5e-6 apart, mv_queries equal (48,401).
+BENCH_RUNS = 3
+BENCH_LOSS_RTOL = 1e-5
+BENCH_RAYS_FACTOR = 2.0
+REG_RTOL = 1e-3
+REG_QUERIES_FRAC = 1 - MD_FRAC
+SCALING_RANKS = 2
+BENCH_ENTRY_TIMEOUT = 600
+
 
 def golden_run(out_path, argv):
     """`chip_smoke.py --golden OUT [--twin-stride N] ARGV...`: the golden
@@ -3608,6 +3641,143 @@ def phase_golden(started):
     return launches
 
 
+def run_entry(script, **env):
+    """One benchmark entry as a user runs it (`python3 SCRIPT` from the root,
+    the default workload plus `env`): its result line, diagnostics, stderr's
+    gsjax lines and wall clock. Fails unless it exits 0 with a positive
+    finite value and no `error`."""
+    from gsjax_torch.utils import benchsync
+
+    full = {k: v for k, v in os.environ.items() if not k.startswith("GSJAX_")} | env
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, script], cwd=ROOT, env=full, capture_output=True,
+                       text=True, timeout=BENCH_ENTRY_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"{script} {env} exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+          f"{r.stderr[-4000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    check("error" not in line and line["value"] is not None and np.isfinite(line["value"])
+          and line["value"] > 0, f"{script}: {line}")
+    return {"line": line, "diag": benchsync.read_diagnostics(r.stderr), "wall_s": wall,
+            "stderr": [ln for ln in r.stderr.splitlines()
+                       if ln.startswith(("warmup", "re-warmup", "timed", "mv_blocks", "n="))]}
+
+
+def spread(values):
+    v = np.asarray(values, np.float64)
+    return {"values": v.tolist(), "median": float(np.median(v)),
+            "spread": float(v.max() - v.min()), "spread_rel": float((v.max() - v.min())
+                                                                      / np.median(v))}
+
+
+def phase_bench(dev, timing_ref, width=1920, height=1080, n=100_000):
+    """The three benchmark entries (BENCH_* above); returns their kernel
+    launches summed over every run."""
+    import torch
+
+    from gsjax_torch import bench_reg
+
+    launches = {}
+
+    def count(run):
+        for k, v in run["diag"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        return run
+
+    # bench_torch.py
+    runs = [count(run_entry("bench_torch.py")) for _ in range(BENCH_RUNS)]
+    rays = [r["line"]["value"] for r in runs]
+    for r in runs:
+        d = r["diag"]
+        check(r["line"]["metric"] == "raster_fwd_bwd_rays_per_s_1080p", r["line"])
+        check(abs(d["loss"] - timing_ref["loss"]) <= BENCH_LOSS_RTOL * abs(timing_ref["loss"]),
+              f"bench_torch loss {d['loss']} against timing_train's {timing_ref['loss']}")
+        check(d["max_tile_count"] <= d["max_per_tile"], f"bench_torch clamped a list: {d}")
+        check(1 / BENCH_RAYS_FACTOR <= r["line"]["value"] / timing_ref["rays_per_s"]
+              <= BENCH_RAYS_FACTOR, f"bench_torch {r['line']['value']} rays/s against "
+              f"timing_train's {timing_ref['rays_per_s']}")
+        check(d["launches"]["blend_fwd"] == d["launches"]["blend_bwd"] == 1 + d["iters"],
+              f"bench_torch launches {d['launches']}")
+    bench_out = {"rays_per_s": spread(rays), "loss": [r["diag"]["loss"] for r in runs],
+                 "timing_train": timing_ref, "max_tile_count": runs[0]["diag"]["max_tile_count"],
+                 "wall_s": [r["wall_s"] for r in runs], "stderr": runs[0]["stderr"],
+                 "nvidia_smi": runs[0]["diag"]["nvidia_smi"]}
+
+    # bench_reg_torch.py's first step on the kernels and on their plain versions
+    first = {}
+    for name, backend in (("kernels", "auto"), ("plain", "torch")):
+        params, aux, adam, step = bench_reg.reg_workload(width, height, n, dev,
+                                                         backend=backend)
+        t0 = time.perf_counter()
+        m = step(params, aux, adam)[3]
+        torch.cuda.synchronize()
+        first[name] = {k: m[k] for k in ("loss", "ncc_loss", "geo_loss", "dn_loss",
+                                         "mv_queries", "num_live_pairs")}
+        first[name]["seconds"] = time.perf_counter() - t0
+        del params, aux, adam, step, m
+    k, p = first["kernels"], first["plain"]
+    for key in ("loss", "ncc_loss", "geo_loss"):
+        check(abs(k[key] - p[key]) <= REG_RTOL * abs(p[key]),
+              f"reg first step {key}: kernels {k[key]}, plain {p[key]}")
+    check(abs(k["mv_queries"] - p["mv_queries"]) <= REG_QUERIES_FRAC * width * height,
+          f"reg first step mv_queries: kernels {k['mv_queries']}, plain {p['mv_queries']}")
+
+    # bench_reg_torch.py, dense NCC and block-compacted
+    reg = [count(run_entry("bench_reg_torch.py")) for _ in range(BENCH_RUNS)]
+    reg_c = count(run_entry("bench_reg_torch.py", GSJAX_NCC_COMPACT="1"))
+    for r in reg + [reg_c]:
+        d, compact = r["diag"], r is reg_c
+        check(r["line"]["metric"] == "reg_train_step_ms_1080p", r["line"])
+        check(abs(d["first_step"]["loss"] - k["loss"]) <= BENCH_LOSS_RTOL * abs(k["loss"])
+              and d["first_step"]["mv_queries"] == k["mv_queries"],
+              f"bench_reg first step {d['first_step']} against the phase's {k}")
+        steps = d["untimed_steps"] + d["iters"]
+        used, unused = (("warp_sample_blocks", "warp_sample") if compact
+                        else ("warp_sample", "warp_sample_blocks"))
+        check(d["launches"]["blend_fwd"] == d["launches"]["blend_bwd"] == steps
+              and d["launches"]["sample_fwd"] > 0 and d["launches"]["sample_bwd"] > 0
+              and d["launches"][used] > 0 and d["launches"][unused] == 0,
+              f"bench_reg{' compact' if compact else ''} launches {d['launches']}")
+    reg_out = {"ms": spread([r["line"]["value"] for r in reg]),
+               "compact_ms": reg_c["line"]["value"],
+               "first_step": first, "untimed_steps": reg[0]["diag"]["untimed_steps"],
+               "mv_queries": reg[0]["diag"]["first_step"]["mv_queries"],
+               "mv_blocks": reg_c["diag"]["first_step"]["mv_blocks"],
+               "ncc": reg[0]["diag"]["first_step"]["ncc_loss"],
+               "geo": reg[0]["diag"]["first_step"]["geo_loss"],
+               "wall_s": [r["wall_s"] for r in reg + [reg_c]],
+               "stderr": reg[0]["stderr"], "compact_stderr": reg_c["stderr"]}
+
+    # bench_scaling_torch.py, ranks sharing the card over gloo
+    scaling = {}
+    for mode in ("train", "views"):
+        name = "SCALING_torch.json" if mode == "train" else "SCALING_torch_views.json"
+        path = os.path.join(ROOT, name)
+        try:
+            r = count(run_entry("bench_scaling_torch.py", GSJAX_SCALING_MODE=mode,
+                                GSJAX_SCALING_DEVICES=str(SCALING_RANKS)))
+            with open(path) as f:
+                table = json.load(f)
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+        rows = table["rows"]
+        check(r["line"]["metric"] == f"{mode}_scaling_correctness_{SCALING_RANKS}dev"
+              and [row["devices"] for row in rows] == [1, SCALING_RANKS]
+              and all(row["efficiency"] is None for row in rows),
+              f"bench_scaling {mode}: {r['line']} {rows}")
+        scaling[mode] = {"line": r["line"], "iter_s": [row["iter_s"] for row in rows],
+                         "rank_iter_s": [row["rank_iter_s"] for row in rows],
+                         "backend": [row["backend"] for row in rows],
+                         "launches": r["diag"]["launches"], "wall_s": r["wall_s"]}
+    for name in ("blend_fwd", "blend_bwd", "sample_fwd", "sample_bwd", "warp_sample",
+                 "warp_sample_blocks"):
+        check(launches.get(name, 0) > 0, f"{name} never launched by the benchmark entries")
+    emit({"phase": "bench", "bench": bench_out, "reg": reg_out, "scaling": scaling,
+          "launches": launches})
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2], sys.argv[3:])
@@ -3675,14 +3845,15 @@ def main():
     finally:
         stop([golden[0]])
     kernel_ms, bound = phase_timing(dev, twin_ms)
-    b2_ms, b2_bound = phase_timing_train(dev)
+    b2_ms, b2_bound, bench_ref = phase_timing_train(dev)
+    bench_launches = phase_bench(dev, bench_ref)
 
     def by_path(name, render=0):
         return {"render": render, "train": train_launches[name],
                 "train_compact": compact_launches[name], "mesh": mesh_launches[name],
                 "evaluate": eval_launches[name], "viewer": viewer_launches[name],
                 "diagnostics": diag_launches[name], "multi_gpu": mgpu_launches[name],
-                "golden": golden_launches[name]}
+                "golden": golden_launches[name], "bench": bench_launches.get(name, 0)}
 
     def band_ms(kernel):
         """B1 / B2 on tile-row lists: each partition's band times and sum."""

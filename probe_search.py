@@ -67,7 +67,7 @@ def cpu_estimate(n_tiles):
     w, h = 1920, 1080
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
     cam = cs.bench_camera(w, h, "cpu")
-    _, _, binning, feats = cs.stages(cs.bench_gaussians(100_000), cam, cfg, "cpu")
+    _, _, binning, feats = cs.stages(cs.bench_inputs(1920, 1080, 100_000)[:5], cam, cfg, "cpu")
     tiles_x, tiles_y = cfg.grid(w, h)
     ids = torch.as_tensor(np.sort(np.random.default_rng(0).choice(
         tiles_x * tiles_y, n_tiles, replace=False)))
@@ -150,7 +150,7 @@ def main(argv=None):
     # B1 on bench.py's frame
     cfg = RasterConfig(sh_degree=3, require_depth=True, max_per_tile=1 << 12)
     cam = cs.bench_camera(1920, 1080, dev)
-    _, _, binning, feats = cs.stages(cs.bench_gaussians(100_000), cam, cfg, dev)
+    _, _, binning, feats = cs.stages(cs.bench_inputs(1920, 1080, 100_000)[:5], cam, cfg, dev)
     args = (feats, binning.tile_start, binning.tile_count, 1920, 1080, cam.fx, cam.fy,
             torch.zeros(3, device=dev))
     nd = dataclasses.replace(cfg, require_depth=False)

@@ -1,10 +1,12 @@
 """gsjax_torch and the scripts that run on the card (chip_smoke.py,
-probe_search.py, ab_port.py, probe_golden.py) import neither jax nor anything of gsjax: the
-card's machine has no jax, and importing any gsjax module imports it. Nor do
-they import a root script of the JAX side (convert.py, metric.py, ...), whose
-numpy-only parts the port copies. sklearn and matplotlib are not on the card's
-machine and cv2 is optional, so no module imports them at module level: the
-package imports with all six blocked."""
+probe_search.py, ab_port.py, probe_golden.py and the benchmark entries
+bench_torch.py, bench_reg_torch.py, bench_scaling_torch.py) import neither
+jax nor anything of gsjax: the card's machine has no jax, and importing any
+gsjax module imports it. Nor do they import a root script of the JAX side
+(convert.py, metric.py, ...), whose numpy-only parts the port copies.
+sklearn and matplotlib are not on the card's machine and cv2 is optional, so
+no module imports them at module level: the package imports with all six
+blocked."""
 
 import ast
 import pathlib
@@ -14,7 +16,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-CARD_SCRIPTS = ("chip_smoke.py", "probe_search.py", "ab_port.py", "probe_golden.py")
+CARD_SCRIPTS = ("chip_smoke.py", "probe_search.py", "ab_port.py", "probe_golden.py",
+                "bench_torch.py", "bench_reg_torch.py", "bench_scaling_torch.py")
 SOURCES = sorted((ROOT / "gsjax_torch").rglob("*.py")) + [
     ROOT / name for name in CARD_SCRIPTS]
 # the JAX side's root scripts and script folders
@@ -75,7 +78,8 @@ def test_import_pulls_in_no_jax():
             "gsjax_torch.utils.trajectories, gsjax_torch.utils.mvs, gsjax_torch.utils.llff, "
             "gsjax_torch.viewer, gsjax_torch.viewer.network_gui, gsjax_torch.viewer.web, "
             "gsjax_torch.viewer.client, gsjax_torch.nan_hunt, gsjax_torch.golden_quality, "
-            "gsjax_torch.quality_r04, gsjax_torch.blobs_mesh_ab; "
+            "gsjax_torch.quality_r04, gsjax_torch.blobs_mesh_ab, gsjax_torch.bench, "
+            "gsjax_torch.bench_reg, gsjax_torch.bench_scaling, gsjax_torch.utils.benchsync; "
             "import sys; assert not any(m == 'jax' or m.startswith(('jax.', 'gsjax.')) "
             "or m == 'gsjax' for m in sys.modules), sorted(sys.modules)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
