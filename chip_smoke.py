@@ -51,6 +51,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
               dense `warp_sample` never, the loss on fixed views (through the
               appearance mapping) falling, and the checkpoint's `x_app/*`
               keys reloading;
+  multihost   gsjax's multi-host demo through the port (`python -m
+              gsjax_torch.multihost_demo`'s `run`): 4 ranks on 2 simulated
+              hosts (LOCAL_RANK / LOCAL_WORLD_SIZE of 2) sharing the card
+              over gloo, joined through `maybe_init_distributed`: the
+              all-sum of rank + 1 reads 10 on each, two `train_step_sharded`
+              steps give bit-equal finite losses, only rank 0 writes; B1 and
+              B2 launched on the ranks (on the host clock, beside the golden
+              child);
   timing      CUDA-event times of preprocess, binning, B1 and a whole
               `render()` at 1920x1080 / 100k, with B1's bound;
   search      how the median search of B1 (1920x1080 / 100k) and of B3 (the
@@ -219,12 +227,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
               SCALING_torch*.json it writes removed). Each entry must end in
               its JSON line with a positive value and no `error`; the
               kernels' launches come from the children's diagnostics lines.
+  profile     the profiling and scaling chain in this process, after `bench`
+              and beside nothing: `profile_stages --fast` (3 iterations at
+              bench.py's workload: each stage alone, gsjax's stats),
+              `measure_trepl`, `scaling_model` on that profile and t_repl,
+              `profile_sample` and `profile_reg` (2 iterations on the 2.07
+              M-point query) and `trace_reg` (2 reg steps under
+              torch.profiler: top kernels, idle share); the stats equal to
+              the phase's own binning's, the full step's loss to
+              `timing_train`'s within 1e-5, the model's n = 1 row to the full
+              step, B3 / B5 / B6 among the traced kernels.
 Then the `kernels` line (seven entries: B6 appears twice, as `warp_sample`
 on the dense NCC and as `warp_sample_blocks` on the compacted one; each with
 its launches by path: render, train, train_compact, mesh, evaluate, viewer,
 diagnostics, multi_gpu (summed over the two ranks), golden, bench (summed
-over every entry run); B1 and B2 also carry `band_ms`, their band launches'
-times by partition), the nvidia-smi line, and last
+over every entry run), profile, multihost (summed over the four ranks); B1
+and B2 also carry `band_ms`, their band launches' times by partition), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Run from the repository root; scenes are written under
 `build/chip_smoke/` and removed at the end.
@@ -2841,6 +2860,8 @@ def profile_step(step):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from gsjax_torch import trace_reg
+
     try:
         step()
         torch.cuda.synchronize()
@@ -2852,14 +2873,7 @@ def profile_step(step):
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not kernels:
             return {"status": "not measured", "error": "no kernel in the trace"}
-        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-        busy, cur_s, cur_e = 0.0, *spans[0]
-        for s0, e0 in spans[1:]:
-            if s0 > cur_e:
-                busy, cur_s, cur_e = busy + cur_e - cur_s, s0, e0
-            else:
-                cur_e = max(cur_e, e0)
-        busy_ms = (busy + cur_e - cur_s) / 1e3
+        busy_ms = trace_reg.union_ms((e.time_range.start, e.time_range.end) for e in kernels)
         by_name = {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -3000,12 +3014,14 @@ PROBE_COLLECTIVES = ("all_reduce_f32", "all_reduce_f64", "all_reduce_i64", "all_
 
 
 def _probe_rank(rank):
-    """On a rank of a 2-rank gloo group sharing the card: each collective of
+    """On a rank of the group (2 ranks sharing the card over gloo; with
+    `probe_cards.py` 4, a card each over nccl): each collective of
     PROBE_COLLECTIVES on CUDA tensors -> {name: "ok" or the error}."""
     import torch
     import torch.distributed as dist
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    n = dist.get_world_size()
     res = {"backend": dist.get_backend(), "device": str(dev)}
 
     def attempt(name, fn):
@@ -3018,14 +3034,14 @@ def _probe_rank(rank):
     def reduce(dtype, op=dist.ReduceOp.SUM):
         t = torch.full((1000,), rank + 1, dtype=dtype, device=dev)
         dist.all_reduce(t, op=op)
-        want = 2 if op == dist.ReduceOp.MAX else 3
+        want = n if op == dist.ReduceOp.MAX else n * (n + 1) // 2
         assert int(t[0]) == want and t.device == dev, (t[0], want)
 
     def gather(dtype):
         t = torch.full((1000,), rank, dtype=dtype, device=dev)
-        parts = [torch.empty_like(t) for _ in range(2)]
+        parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t)
-        assert [int(p[0]) for p in parts] == [0, 1]
+        assert [int(p[0]) for p in parts] == list(range(n))
 
     attempt("all_reduce_f32", lambda: reduce(torch.float32))
     attempt("all_reduce_f64", lambda: reduce(torch.float64))
@@ -3039,10 +3055,13 @@ def _probe_rank(rank):
 
 
 def _serve_rank(rank, width, height, n, angles):
-    """On a rank of a 2-rank group on the card: `render_sharded` (equal rows,
-    then a dual partition) and `render_views_sharded` against `render()` on
-    this rank -> max abs errors, bit-equality and B1's launches."""
+    """On a rank of the group on the card: `render_sharded` (equal rows, then
+    a dual partition: 2 ranks pair bands (0, 3) and (1, 2) of uneven rows,
+    more ranks mirror 2n equal bands) and `render_views_sharded` against
+    `render()` on this rank -> max abs errors, bit-equality and B1's
+    launches."""
     import torch
+    import torch.distributed as dist
 
     from gsjax_torch.model import gaussians as gm
     from gsjax_torch.ops.raster import Camera, RasterConfig, render, render_cuda
@@ -3069,7 +3088,9 @@ def _serve_rank(rank, width, height, n, angles):
     res = {"rank": rank}
     render_cuda.blend_fwd.launches = 0
     _, tiles_y = cfg.grid(width, height)
-    dual = (np.array([0, 8, 15, 22, tiles_y]), np.array([[0, 3], [1, 2]]))
+    ranks = dist.get_world_size()
+    dual = ((np.array([0, 8, 15, 22, tiles_y]), np.array([[0, 3], [1, 2]])) if ranks == 2
+            else (shard.equal_band_bounds(tiles_y, 2 * ranks), None))
     for name, bounds, pair in (("equal", None, None), ("paired_dual", *dual)):
         one = shard.render_sharded(params, aux, cams[0], cfg, bg, row_bounds=bounds,
                                    band_pair=pair)
@@ -3218,21 +3239,22 @@ def mgpu_base(keep):
             "--ip", "", "--seed", "0"]
 
 
-def start_multi_gpu(dev, keep):
+def start_multi_gpu(dev, keep, n=2):
     """Start the multi_gpu phase's processes, which run beside the `mesh` and
     `slice` phases (the meshing CLI's Delaunay triangulation holds the host,
-    not the card): the two ranks (`chip_smoke.py --train-rank` with
-    `--dist_*`, sharing the card over gloo) and MGPU_AGAIN more
+    not the card): the `n` ranks (`chip_smoke.py --train-rank` with
+    `--dist_*`; two sharing the card over gloo, or with `probe_cards.py` one
+    a card over nccl) and MGPU_AGAIN more
     single-process runs from the same checkpoint, the measure of how far two
     runs of one program drift apart. Returns (processes, their OUT paths)."""
     from gsjax_torch.parallel.launch import free_port
 
     base = mgpu_base(keep)
     coord = f"127.0.0.1:{free_port()}"
-    outs = [os.path.join(keep, f"rank{r}.json") for r in range(2)]
+    outs = [os.path.join(keep, f"rank{r}.json") for r in range(n)]
     argvs = [base + ["-m", os.path.join(keep, f"model_r{r}"), "--dist_coordinator", coord,
-                     "--dist_num_processes", "2", "--dist_process_id", str(r)]
-             for r in range(2)]
+                     "--dist_num_processes", str(n), "--dist_process_id", str(r)]
+             for r in range(n)]
     for i in range(MGPU_AGAIN):
         outs.append(os.path.join(keep, f"single_again{i}.json"))
         argvs.append(base + ["-m", os.path.join(keep, f"model_single_again{i}"),
@@ -3251,7 +3273,7 @@ def stop(procs):
             p.wait()
 
 
-def phase_multi_gpu(dev, keep, started):
+def phase_multi_gpu(dev, keep, started, n=2, remove=True):
     """Two ranks sharing the card over gloo (`start_multi_gpu`: the training
     CLI's `main` with `--dist_*`, then the collectives probe and the serving
     checks) train MGPU_STEPS steps from the `train` phase's checkpoint (the
@@ -3261,7 +3283,8 @@ def phase_multi_gpu(dev, keep, started):
     bounds after the first step and to the spread of two single runs after
     the later ones (MGPU_SPREAD); the ranks' states bit-equal; only rank 0's
     model directory written; B1 / B2 / B3 / B5 / B6 launched on the ranks.
-    Returns {kernel: launches} summed over the ranks."""
+    Returns {kernel: launches} summed over the ranks; `keep` is removed
+    unless `remove` is false."""
     procs, outs = started
     try:
         for p in procs:
@@ -3269,10 +3292,10 @@ def phase_multi_gpu(dev, keep, started):
     finally:
         stop(procs)
     check(all(p.returncode == 0 for p in procs),
-          f"multi_gpu exit codes (rank 0, rank 1, the single runs) "
+          f"multi_gpu exit codes (the {n} ranks, the single runs) "
           f"{[p.returncode for p in procs]}")
-    ranks = [json.load(open(o)) for o in outs[:2]]
-    agains = [json.load(open(o)) for o in outs[2:]]
+    ranks = [json.load(open(o)) for o in outs[:n]]
+    agains = [json.load(open(o)) for o in outs[n:]]
     base = mgpu_base(keep)
     t0 = time.perf_counter()
     trainer, single_log, ref = timed_cli(
@@ -3304,7 +3327,7 @@ def phase_multi_gpu(dev, keep, started):
         return out
 
     ranks_vs_single = distance(r0["per_step"], snapshots(outs[0]))
-    singles = [distance(a["per_step"], snapshots(o)) for a, o in zip(agains, outs[2:])]
+    singles = [distance(a["per_step"], snapshots(o)) for a, o in zip(agains, outs[n:])]
 
     def larger(a, b):
         if isinstance(a, dict):
@@ -3325,12 +3348,13 @@ def phase_multi_gpu(dev, keep, started):
                                        MGPU_STATS_RTOL),
               "dxyz_q90": max(MGPU_SPREAD * s[later]["dxyz_q90"], MGPU_DXYZ_Q90),
               "dxyz_max": max(MGPU_SPREAD * s[later]["dxyz_max"], MGPU_DXYZ_MAX)}
-    res = {"phase": "multi_gpu", "ranks": 2, "backend": r0["probe"]["backend"],
+    res = {"phase": "multi_gpu", "ranks": n, "backend": r0["probe"]["backend"],
            "steps": len(r0["per_step"]), "mv_steps": mv_steps, "single_s": single_s,
            "step_s_ranks": [x["step_s"] for x in r0["per_step"][1:]],
            "step_s_single": [x["step_s"] for x in single_log[1:]],
-           "step_s_note": "host clock; two ranks share one card, gloo goes through the "
-                          "host; the ranks ran beside the mesh and slice phases",
+           "step_s_note": ("host clock; two ranks share one card, gloo goes through the "
+                           "host; the ranks ran beside the mesh and slice phases" if n == 2
+                           else f"host clock; {n} ranks, one a card"),
            "loss_ranks": [x["loss"] for x in r0["per_step"]],
            "loss_single": [x["loss"] for x in single_log],
            "ranks_vs_single": d, "single_vs_single": s, "singles": singles,
@@ -3338,8 +3362,9 @@ def phase_multi_gpu(dev, keep, started):
            "alive": [r["alive"] for r in ranks], "alive_single": int(trainer.aux.alive.sum()),
            "densify": [x["densify"] for x in r0["per_step"] if x["densify"]],
            "partitions": [x["partition"] for x in r0["per_step"]],
-           "ranks_bit_equal": ranks[0]["digest"] == ranks[1]["digest"],
-           "rank1_wrote": os.path.exists(os.path.join(keep, "model_r1")),
+           "ranks_bit_equal": all(r["digest"] == ranks[0]["digest"] for r in ranks),
+           "rank1_wrote": any(os.path.exists(os.path.join(keep, f"model_r{r}"))
+                              for r in range(1, n)),
            "launches": launches, "probe": [r["probe"] for r in ranks],
            "serve": [r["serve"] for r in ranks]}
     emit(res)
@@ -3353,8 +3378,8 @@ def phase_multi_gpu(dev, keep, started):
           and all(len(a["per_step"]) == MGPU_STEPS for a in agains), "steps run")
     check(mv_steps >= 1 and len(res["densify"]) == 1,
           f"{mv_steps} multi-view steps, {len(res['densify'])} densifications")
-    check(res["ranks_bit_equal"], "the two ranks' states differ")
-    check(not res["rank1_wrote"], "rank 1 wrote its model directory")
+    check(res["ranks_bit_equal"], "the ranks' states differ")
+    check(not res["rank1_wrote"], "a rank other than 0 wrote its model directory")
     check(os.path.exists(os.path.join(keep, "model_r0", "point_cloud",
                                       f"iteration_{40 + MGPU_STEPS}", "point_cloud.ply")),
           "rank 0 wrote no PLY")
@@ -3372,10 +3397,11 @@ def phase_multi_gpu(dev, keep, started):
         check(d[later][k] <= bounds[k],
               f"{k} at step {later} past the single runs' spread: {d[later]} ({bounds})")
     for name in ("blend_fwd", "blend_bwd"):
-        check(launches[name] >= 2 * MGPU_STEPS, f"{name} launched {launches[name]} times")
+        check(launches[name] >= n * MGPU_STEPS, f"{name} launched {launches[name]} times")
     for name in ("sample_fwd", "sample_bwd", "warp_sample"):
-        check(launches[name] == 2 * mv_steps, f"{name} launched {launches[name]} times")
-    shutil.rmtree(keep, ignore_errors=True)
+        check(launches[name] == n * mv_steps, f"{name} launched {launches[name]} times")
+    if remove:
+        shutil.rmtree(keep, ignore_errors=True)
     return launches
 
 
@@ -3402,7 +3428,7 @@ GOLDEN_BINARY_STEPS = 8     # the golden CLI's tetra route
 GOLDEN_TIMEOUT = 900
 GOLDEN_DIR = os.path.join(ROOT, "build", "chip_smoke_golden")
 # the phases that run while the golden child trains (host-clock phases)
-GOLDEN_BESIDE = ("train_options", "evaluate", "viewer", "diagnostics")
+GOLDEN_BESIDE = ("train_options", "multihost", "evaluate", "viewer", "diagnostics")
 
 # The `bench` phase: the three benchmark entries run as a user runs them,
 # one after the other and beside nothing (their times are CUDA events).
@@ -3778,6 +3804,125 @@ def phase_bench(dev, timing_ref, width=1920, height=1080, n=100_000):
     return launches
 
 
+# The `profile` phase: the profiling and scaling chain in this process (no
+# child start-ups), after `bench` and beside nothing (its times are CUDA
+# events): `profile_stages --fast` for PROFILE_ITERS iterations at bench.py's
+# workload, `measure_trepl`, `scaling_model` on that profile and t_repl (the
+# datasheet's link), `profile_sample` and `profile_reg` for
+# PROFILE_SAMPLE_ITERS iterations on the 2.07 M-point query, `trace_reg` for
+# TRACE_STEPS steps. Their own output goes to PROFILE_DIR/profile.log. Held:
+# the stats equal `stage_stats` on the phase's own binning and B1 planes of
+# bench.py's scene (binning and B1 are deterministic); the full step's loss
+# within BENCH_LOSS_RTOL of timing_train's bench step on the same draws; the
+# model's n = 1 row equal to the profile's full step; B3, B5 and B6 named
+# among the traced reg step's kernels (TRACE_KERNELS). The multi-host demo
+# (`multihost_demo`: 4 gloo ranks on 2 simulated hosts sharing the card)
+# runs beside the golden child with the other host-clock phases, within
+# MULTIHOST_TIMEOUT, and must report `ok`.
+PROFILE_ITERS = 3
+PROFILE_SAMPLE_ITERS = 2
+TRACE_STEPS = 2
+TRACE_TOP = 15
+TRACE_KERNELS = ("sample_fwd_kernel", "sample_bwd_kernel", "warp_sample_kernel")
+PROFILE_DIR = os.path.join(ROOT, "build", "chip_smoke_profile")
+MULTIHOST_TIMEOUT = 300
+
+
+def phase_profile(dev, timing_ref):
+    """The profiling and scaling chain (PROFILE_* above); returns its kernel
+    launches."""
+    import torch
+
+    from gsjax_torch import (measure_trepl, profile_reg, profile_sample, profile_stages,
+                             scaling_model, trace_reg)
+    from gsjax_torch.ops.raster import render_cuda
+
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    os.makedirs(PROFILE_DIR)
+    path = lambda name: os.path.join(PROFILE_DIR, name)
+    reset_launches()
+    t0 = time.perf_counter()
+    secs, out = {}, {}
+    with open(path("profile.log"), "w") as log, contextlib.redirect_stdout(log):
+        for name, run in (
+                ("profile_stages", lambda: profile_stages.main(
+                    ["--fast", "--iters", str(PROFILE_ITERS), "--out", path("PROFILE.json")])),
+                ("measure_trepl", lambda: measure_trepl.main([])),
+                ("scaling_model", lambda: scaling_model.main(
+                    ["--profile", path("PROFILE.json"), "--t_repl_ms",
+                     str(out["measure_trepl"]["value"]), "--out", path("SCALING_MODEL.json")])),
+                ("profile_sample", lambda: profile_sample.main(
+                    ["--iters", str(PROFILE_SAMPLE_ITERS), "--out", path("SAMPLE.json")])),
+                ("profile_reg", lambda: profile_reg.main(
+                    ["--iters", str(PROFILE_SAMPLE_ITERS), "--out", path("REG.json")])),
+                ("trace_reg", lambda: trace_reg.main(
+                    ["--iters", str(TRACE_STEPS), "--top", str(TRACE_TOP)]))):
+            t1 = time.perf_counter()
+            out[name] = run()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t1
+    launches = read_launches()
+    seconds = time.perf_counter() - t0
+
+    prof, model, trace = out["profile_stages"], out["scaling_model"], out["trace_reg"]
+    # the stats against the phase's own binning and B1 planes
+    cfg = profile_stages.stage_config()
+    cam = bench_camera(1920, 1080, dev)
+    gauss, _, _ = profile_stages.stage_inputs(1920, 1080, 100_000)
+    _, prep, binning, feats = stages(gauss, cam, cfg, dev)
+    planes = render_cuda.blend_fwd(feats, binning.tile_start, binning.tile_count, 1920, 1080,
+                                   cam.fx, cam.fy, torch.zeros(3, device=dev), cfg)
+    own = profile_stages.stage_stats(prep, binning, planes[8], cfg, 1920, 1080)
+    check(own == prof["stats"], f"profile stats {prof['stats']} against the phase's {own}")
+    loss = prof["full_step_loss"]
+    check(abs(loss - timing_ref["loss"]) <= BENCH_LOSS_RTOL * abs(timing_ref["loss"]),
+          f"profile_stages' full step loss {loss} against timing_train's {timing_ref['loss']}")
+    full = prof["timings_ms"]["FULL fwd+bwd step"]
+    check(model["rows"][0]["devices"] == 1 and model["rows"][0]["pred_step_ms"] == round(full, 2),
+          f"scaling_model's n = 1 row {model['rows'][0]} against the full step {full}")
+    missing = [k for k in TRACE_KERNELS if not any(k in nm for nm in trace["names"])]
+    check(not missing, f"trace_reg's kernels lack {missing}")
+    for name in ("blend_fwd", "blend_bwd", "sample_fwd", "sample_bwd", "warp_sample"):
+        check(launches[name] > 0, f"{name} never launched by the profile phase")
+    keep = ("devices", "pred_step_ms", "pred_efficiency", "collective_ms", "share_max_balanced",
+            "partition")
+    emit({"phase": "profile", "seconds": seconds, "seconds_by_tool": secs,
+          "timings_ms": prof["timings_ms"], "stats": prof["stats"],
+          "full_step_loss": loss, "t_repl_ms": out["measure_trepl"]["value"],
+          "model": {"inputs": {k: model["inputs"][k] for k in
+                               ("t_prep_ms", "t_repl_ms", "t_band_ms", "ici_gbps",
+                                "link_gbps_source", "grad_psum_bytes")},
+                    "rows": [{k: r[k] for k in keep} for r in model["rows"]]},
+          "sample": {k: v for k, v in out["profile_sample"].items() if k != "notes"},
+          "reg": out["profile_reg"],
+          "trace": {k: trace[k] for k in ("window_ms", "busy_ms", "idle_share", "kernels",
+                                          "total_ms", "top")},
+          "launches": launches})
+    return launches
+
+
+def phase_multihost(dev):
+    """gsjax's multi-host demo through the port (`multihost_demo.run`): 4
+    ranks on 2 simulated hosts, sharing the card over gloo; returns the
+    ranks' kernel launches summed."""
+    from gsjax_torch import multihost_demo
+
+    t0 = time.perf_counter()
+    res = multihost_demo.run(2, 2, dev, timeout=MULTIHOST_TIMEOUT)
+    check(res["ok"], f"multihost demo: {json.dumps(res)[:3000]}")
+    launches = {}
+    for r in res["ranks"]:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check(launches["blend_fwd"] > 0 and launches["blend_bwd"] > 0,
+          f"multihost demo launches {launches}")
+    emit({"phase": "multihost", "seconds": time.perf_counter() - t0, "backend": res["backend"],
+          "psum": [r["psum"] for r in res["ranks"]], "losses": res["ranks"][0]["losses"],
+          "devices": [r["device"] for r in res["ranks"]], "launches": launches,
+          "primary_artifact_written": res["primary_artifact_written"]})
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2], sys.argv[3:])
@@ -3835,6 +3980,7 @@ def main():
     golden = start_golden()
     try:
         compact_launches = phase_train(dev, options=True)
+        mh_launches = phase_multihost(dev)
         eval_launches = phase_evaluate(dev)
         shutil.rmtree(WORK, ignore_errors=True)
         scene_dir = write_train_scene(dev)
@@ -3847,13 +3993,15 @@ def main():
     kernel_ms, bound = phase_timing(dev, twin_ms)
     b2_ms, b2_bound, bench_ref = phase_timing_train(dev)
     bench_launches = phase_bench(dev, bench_ref)
+    profile_launches = phase_profile(dev, bench_ref)
 
     def by_path(name, render=0):
         return {"render": render, "train": train_launches[name],
                 "train_compact": compact_launches[name], "mesh": mesh_launches[name],
                 "evaluate": eval_launches[name], "viewer": viewer_launches[name],
                 "diagnostics": diag_launches[name], "multi_gpu": mgpu_launches[name],
-                "golden": golden_launches[name], "bench": bench_launches.get(name, 0)}
+                "golden": golden_launches[name], "bench": bench_launches.get(name, 0),
+                "profile": profile_launches[name], "multihost": mh_launches[name]}
 
     def band_ms(kernel):
         """B1 / B2 on tile-row lists: each partition's band times and sum."""

@@ -29,7 +29,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, n, fn, args, init_method, device, threads, results):
+def _rank_main(rank, n, fn, args, init_method, device, threads, results, env, join):
+    import os
+
+    os.environ.update(env)
     import torch
     import torch.distributed as dist
 
@@ -38,10 +41,12 @@ def _rank_main(rank, n, fn, args, init_method, device, threads, results):
     try:
         if threads:
             torch.set_num_threads(threads)
-        init_group(init_method, n, rank, device)
+        if join:
+            init_group(init_method, n, rank, device)
         out = fn(rank, *args)
-        dist.barrier()
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.barrier()
+            dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -49,12 +54,15 @@ def _rank_main(rank, n, fn, args, init_method, device, threads, results):
 
 
 def launch(fn, n: int, args=(), device="cpu", timeout: float | None = 120.0,
-           init_method: str | None = None, threads: int | None = 1) -> list:
+           init_method: str | None = None, threads: int | None = 1,
+           rank_env: list[dict] | None = None, join: bool = True) -> list:
     """Run `fn(rank, *args)` on `n` spawned ranks of one group (see the
     module docstring); returns their values in rank order. `init_method`:
     the rendezvous (default tcp on a free localhost port; tests pass
     `file://...` so that parallel workers never share a port); `threads`:
-    torch threads per rank (None: torch's default)."""
+    torch threads per rank (None: torch's default); `rank_env`: per rank, the
+    environment variables to set in it; `join`: whether the launcher joins
+    the ranks to a group before `fn`."""
     if n < 1:
         raise ValueError(f"launch needs at least one rank, got {n}")
     init_method = init_method or f"tcp://127.0.0.1:{free_port()}"
@@ -62,7 +70,8 @@ def launch(fn, n: int, args=(), device="cpu", timeout: float | None = 120.0,
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, n, fn, tuple(args), init_method, str(device),
-                               threads, results)) for r in range(n)]
+                               threads, results, dict(rank_env[r]) if rank_env else {},
+                               join)) for r in range(n)]
     for p in procs:
         p.start()
     deadline = None if timeout is None else time.monotonic() + timeout

@@ -1,5 +1,5 @@
 """gsjax_torch and the scripts that run on the card (chip_smoke.py,
-probe_search.py, ab_port.py, probe_golden.py and the benchmark entries
+probe_search.py, ab_port.py, probe_golden.py, probe_cards.py and the benchmark entries
 bench_torch.py, bench_reg_torch.py, bench_scaling_torch.py) import neither
 jax nor anything of gsjax: the card's machine has no jax, and importing any
 gsjax module imports it. Nor do they import a root script of the JAX side
@@ -17,7 +17,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CARD_SCRIPTS = ("chip_smoke.py", "probe_search.py", "ab_port.py", "probe_golden.py",
-                "bench_torch.py", "bench_reg_torch.py", "bench_scaling_torch.py")
+                "bench_torch.py", "bench_reg_torch.py", "bench_scaling_torch.py",
+                "probe_cards.py")
 SOURCES = sorted((ROOT / "gsjax_torch").rglob("*.py")) + [
     ROOT / name for name in CARD_SCRIPTS]
 # the JAX side's root scripts and script folders
@@ -79,7 +80,10 @@ def test_import_pulls_in_no_jax():
             "gsjax_torch.viewer, gsjax_torch.viewer.network_gui, gsjax_torch.viewer.web, "
             "gsjax_torch.viewer.client, gsjax_torch.nan_hunt, gsjax_torch.golden_quality, "
             "gsjax_torch.quality_r04, gsjax_torch.blobs_mesh_ab, gsjax_torch.bench, "
-            "gsjax_torch.bench_reg, gsjax_torch.bench_scaling, gsjax_torch.utils.benchsync; "
+            "gsjax_torch.bench_reg, gsjax_torch.bench_scaling, gsjax_torch.utils.benchsync, "
+            "gsjax_torch.profile_stages, gsjax_torch.measure_trepl, gsjax_torch.scaling_model, "
+            "gsjax_torch.multihost_demo, gsjax_torch.profile_sample, gsjax_torch.profile_reg, "
+            "gsjax_torch.trace_reg; "
             "import sys; assert not any(m == 'jax' or m.startswith(('jax.', 'gsjax.')) "
             "or m == 'gsjax' for m in sys.modules), sorted(sys.modules)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

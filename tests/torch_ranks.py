@@ -211,3 +211,31 @@ def rank_sleep(rank, seconds):
     import time
 
     time.sleep(seconds)
+
+
+def rank_payloads(rank, cases):
+    """The collectives one sharded step of each of `cases` calls, recorded
+    at `torch.distributed`: per case [(op, bytes)], an all-gather by its
+    output's bytes, an all-reduce by its buffer's."""
+    import torch.distributed as dist
+
+    seen, orig = [], (dist.all_gather, dist.all_reduce)
+
+    def gather(parts, x, *a, **k):
+        seen.append(("all_gather", x.numel() * x.element_size() * len(parts)))
+        return orig[0](parts, x, *a, **k)
+
+    def reduce(t, *a, **k):
+        seen.append(("all_reduce", t.numel() * t.element_size()))
+        return orig[1](t, *a, **k)
+
+    out = []
+    dist.all_gather, dist.all_reduce = gather, reduce
+    try:
+        for case in cases:
+            seen.clear()
+            step_case(dict(case, sharded=True))
+            out.append(list(seen))
+    finally:
+        dist.all_gather, dist.all_reduce = orig
+    return out
