@@ -1,0 +1,7 @@
+"""The operations the traced frames need (counts/work.py) over the traced window at 67 TFLOP/s fp32 (%)."""
+
+from gsbench import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx, "render")

@@ -1,0 +1,7 @@
+"""Traffic: each mix is a data file `<traffic>.json` here, named by a cell's
+`traffic`; its `kind` names the module `<kind>.py` here that drives it. A
+driver module has `KERNELS` (the port's kernels it builds in set-up),
+`FAULTS`, `run(...)` (one run of a cell, `harness.run_cell`), and for the
+check's calibration `readings`, `reference`, `compare` and `control`. A new
+mix of a known kind is a new data file; a new kind is a new module.
+"""
