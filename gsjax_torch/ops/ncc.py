@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from gsjax_torch.core import rowwise
 from gsjax_torch.ops import warp_sample as ws
+from gsjax_torch.utils import spans
 
 BLK = 16              # pixel block side of the compacted NCC
 P = BLK * BLK         # pixels a block
@@ -129,6 +130,7 @@ def _ncc2(c_r_taps, c_n_taps):
     return cross * cross / (var_r * var_n + 1e-8), var_r, var_n
 
 
+@spans.spanned("mv.ncc")
 def warp_patch_ncc(depth: torch.Tensor, normal: torch.Tensor, gray_r: torch.Tensor,
                    gray_n: torch.Tensor, rel_rot: torch.Tensor, rel_t: torch.Tensor,
                    intr_r, intr_n, radius: int = 3, sample_fn=ws.warp_sample,
@@ -174,8 +176,9 @@ def warp_patch_ncc(depth: torch.Tensor, normal: torch.Tensor, gray_r: torch.Tens
     inside_k = (un_k - rf > 0) & (un_k + rf < wn - 1) & (vn_k - rf > 0) & (vn_k + rf < hn - 1)
     all_inside = all_inside & inside_k.all(0)
 
-    c_n_k = ws.WarpSample.apply(gray_n.contiguous(), un_k.contiguous(),
-                                vn_k.contiguous(), sample_fn)
+    with spans.span("ncc.sample"):
+        c_n_k = ws.WarpSample.apply(gray_n.contiguous(), un_k.contiguous(),
+                                    vn_k.contiguous(), sample_fn)
     ncc, var_r, var_n = _ncc2((c_r_tap(du, dv) for dv in offs for du in offs), c_n_k)
     valid = all_inside & (var_r > 5e-6) & (var_n > 5e-6)
     return torch.where(valid, ncc, torch.zeros_like(ncc)), valid
@@ -235,6 +238,7 @@ def block_neighbour_taps(depth, normal, sel_mask, rel_rot, rel_t, intr_r, intr_n
     return un_k.contiguous(), vn_k.contiguous()
 
 
+@spans.spanned("mv.ncc")
 def warp_patch_ncc_blocks(depth: torch.Tensor, normal: torch.Tensor, gray_r: torch.Tensor,
                           gray_n: torch.Tensor, rel_rot: torch.Tensor, rel_t: torch.Tensor,
                           intr_r, intr_n, sel_mask: torch.Tensor, weights: torch.Tensor,
@@ -307,8 +311,9 @@ def warp_patch_ncc_blocks(depth: torch.Tensor, normal: torch.Tensor, gray_r: tor
             c_hood[..., torch.tensor(pick, device=depth.device)]
     c_r = c_r.transpose(1, 2)                                              # [B,K,P]
 
-    c_n = ws.WarpSample.apply(gray_n.contiguous(), un_k.contiguous(),
-                              vn_k.contiguous(), sample_fn)                # [B,K,P]
+    with spans.span("ncc.sample"):
+        c_n = ws.WarpSample.apply(gray_n.contiguous(), un_k.contiguous(),
+                                  vn_k.contiguous(), sample_fn)            # [B,K,P]
     ncc2, var_r, var_n = _ncc2(c_r.unbind(1), c_n.unbind(1))
     valid = all_inside & (var_r > 5e-6) & (var_n > 5e-6) & in_img
     nccv = torch.clamp(1.0 - torch.where(valid, ncc2, zero), 0.0, 2.0)

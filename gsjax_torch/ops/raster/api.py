@@ -23,6 +23,7 @@ from gsjax_torch.ops.raster.binning import bin_gaussians
 from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.ops.raster.config import RasterConfig
 from gsjax_torch.ops.raster.preprocess import preprocess
+from gsjax_torch.utils import spans
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -56,6 +57,7 @@ def mark_visible(means3d: torch.Tensor, camera: Camera,
     return z > cfg.near_plane
 
 
+@spans.spanned("raster.render")
 def render(means3d: torch.Tensor,
            scales: torch.Tensor,
            rotations: torch.Tensor,

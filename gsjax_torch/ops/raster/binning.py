@@ -42,6 +42,7 @@ import torch
 
 from gsjax_torch.ops.raster.config import RasterConfig
 from gsjax_torch.ops.raster.preprocess import Preprocessed
+from gsjax_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +55,7 @@ class Binning:
     max_tile_count: int        # largest tile_count (max_per_tile monitoring)
 
 
+@spans.spanned("raster.binning")
 def bin_gaussians(prep: Preprocessed, cfg: RasterConfig, width: int,
                   height: int, continuous_coords: bool = False,
                   row_lo: int | None = None, row_hi: int | None = None,

@@ -23,6 +23,7 @@ from gsjax_torch.core import quaternion, rowwise, sg, sh
 from gsjax_torch.core.transforms import ndc_to_pix
 from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.ops.raster.config import RasterConfig
+from gsjax_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +49,7 @@ def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (m * v[:, None, :]).sum(-1)
 
 
+@spans.spanned("raster.preprocess")
 def preprocess(means3d: torch.Tensor,
                scales: torch.Tensor,
                rotations: torch.Tensor,

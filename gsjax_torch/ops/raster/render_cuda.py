@@ -38,6 +38,7 @@ import torch
 from gsjax_torch import _build
 from gsjax_torch.ops.raster import render_ref
 from gsjax_torch.ops.raster.config import RasterConfig
+from gsjax_torch.utils import spans
 
 _SIDE = 16  # pixels per side of B1's thread block
 _BWD_TILE = 32  # B2 runs one block per 32x32 binning tile
@@ -330,6 +331,7 @@ class Blend(torch.autograd.Function):
     gradient."""
 
     @staticmethod
+    @spans.spanned("raster.blend")
     def forward(ctx, feats, tile_start, tile_count, width, height, fx, fy, bg,
                 cfg, fwd, bwd, tile_rows=None):
         planes = fwd(feats, tile_start, tile_count, width, height, fx, fy, bg, cfg,
@@ -339,6 +341,7 @@ class Blend(torch.autograd.Function):
         return planes
 
     @staticmethod
+    @spans.spanned("raster.blend_bwd")
     def backward(ctx, grad_planes):
         feats, tile_start, tile_count, planes, bg = ctx.saved_tensors
         width, height, fx, fy, cfg, bwd, tile_rows = ctx.args

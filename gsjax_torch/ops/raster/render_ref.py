@@ -40,6 +40,7 @@ import torch
 from gsjax_torch.ops.raster.binning import Binning
 from gsjax_torch.ops.raster.config import RasterConfig
 from gsjax_torch.ops.raster.preprocess import Preprocessed
+from gsjax_torch.utils import spans
 
 # payload layout: mean2d(2) conic(3) opacity(1) color(3) ray_plane(4) normal(3)
 _F = 16
@@ -52,6 +53,7 @@ def pack_features(prep: Preprocessed) -> torch.Tensor:
                       prep.color, prep.ray_plane, prep.normal], dim=-1)
 
 
+@spans.spanned("raster.pairs")
 def prepare_pairs(prep: Preprocessed, binning: Binning) -> torch.Tensor:
     """[K, 16] contiguous payload of every live pair, in binning order."""
     return pack_features(prep)[binning.gauss_idx].contiguous()

@@ -41,6 +41,7 @@ from gsjax_torch.ops.raster.binning import Binning, bin_gaussians
 from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.ops.raster.config import RasterConfig
 from gsjax_torch.ops.raster.preprocess import preprocess
+from gsjax_torch.utils import spans
 
 
 def _project_points(points, camera: Camera, cfg: RasterConfig):
@@ -108,6 +109,7 @@ class ViewPairs:
     binning: Binning           # its lists (continuous_coords)
 
 
+@spans.spanned("sample.prepare")
 def prepare_view(means3d, scales, rotations, opacities, camera: Camera,
                  cfg: RasterConfig, alive=None) -> ViewPairs:
     """Preprocess and bin the gaussians for point queries in `camera` (SH/SG
@@ -135,6 +137,7 @@ class Query:
     inside0: torch.Tensor      # [Q] in front of the near plane and on screen
 
 
+@spans.spanned("sample.prepare")
 def prepare_points(view: ViewPairs, points, camera: Camera, cfg: RasterConfig,
                    pixel_order: bool = False) -> Query:
     """Project the points and sort the ones inside the frustum by tile (a

@@ -36,6 +36,7 @@ from gsjax_torch.ops import sample_ref
 from gsjax_torch.ops.raster.config import RasterConfig
 from gsjax_torch.ops.raster.render_cuda import (SLOTS, _check, check_bwd_counters,
                                                 check_search_args)
+from gsjax_torch.utils import spans
 
 # B4's profile counters, in the order of integrate_fwd.cu:Counter, int64:
 # blocks and their points; pairs staged (per block) and kept in the warps'
@@ -232,6 +233,7 @@ class SampleDepth(torch.autograd.Function):
     device."""
 
     @staticmethod
+    @spans.spanned("sample.query")
     def forward(ctx, feats, pts, tile_start, tile_count, blocks, cfg, fwd, bwd):
         res = fwd(feats, tile_start, tile_count, pts, blocks, cfg)
         ctx.save_for_backward(feats, pts, tile_start, tile_count, blocks, res)
@@ -239,6 +241,7 @@ class SampleDepth(torch.autograd.Function):
         return res
 
     @staticmethod
+    @spans.spanned("sample.query_bwd")
     def backward(ctx, grad_res):
         feats, pts, tile_start, tile_count, blocks, res = ctx.saved_tensors
         cfg, bwd = ctx.args

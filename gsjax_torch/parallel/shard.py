@@ -49,6 +49,7 @@ from gsjax_torch.ops.raster.preprocess import Preprocessed, preprocess
 from gsjax_torch.parallel.collectives import all_gather, all_sum, all_sum_many, world
 from gsjax_torch.train import losses, multiview
 from gsjax_torch.train.step import LossConfig, nonfinite_count
+from gsjax_torch.utils import spans
 
 IMAGE_PLANES = 8   # the blend's differentiable planes: colour, normal, alpha, depth
 
@@ -458,7 +459,8 @@ def train_step_sharded(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.
         app_leaves += [p for layer in net_tree.values() for p in layer.values()]
 
     tap = torch.zeros(params.capacity, 2, device=dev, requires_grad=True)
-    scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
+    with spans.span("model.activate"):
+        scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
     prep = _preprocess_sharded(params, scales, opac, aux, camera, cfg, n, rank, group)
     prep = dataclasses.replace(prep, mean2d=prep.mean2d + tap)
     lo, hi, lo2, hi2 = band_intervals(bounds, pair, rank)
@@ -543,9 +545,10 @@ def train_step_sharded(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.
 
     leaves = [getattr(params, k) for k in gm.PARAM_FIELDS]
     wrt = leaves + [tap] + app_leaves
-    g_all = torch.autograd.grad(part, wrt, allow_unused=True)
-    g_all = all_sum_many([torch.zeros_like(x) if g is None else g for g, x in zip(g_all, wrt)],
-                         group)
+    with spans.span("step.backward"):
+        g_all = torch.autograd.grad(part, wrt, allow_unused=True)
+        g_all = all_sum_many([torch.zeros_like(x) if g is None else g
+                              for g, x in zip(g_all, wrt)], group)
     g_leaves, g2d, g_app = g_all[:len(leaves)], g_all[len(leaves)], g_all[len(leaves) + 1:]
     app_grad = g_app[0] if kind != "no" else None
     app_net_grad = None
@@ -557,14 +560,15 @@ def train_step_sharded(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.
         m = aux.alive.reshape((-1,) + (1,) * (g.dim() - 1))
         return torch.where(m, g, torch.zeros_like(g))
 
-    grads = {k: mask(g) for k, g in zip(gm.PARAM_FIELDS, g_leaves)}
-    g2d = mask(g2d)
-    with torch.no_grad():
+    with spans.span("step.update"), torch.no_grad():
+        grads = {k: mask(g) for k, g in zip(gm.PARAM_FIELDS, g_leaves)}
+        g2d = mask(g2d)
         vis = prep.radius > 0
         aux = gm.add_densification_stats(aux, g2d, vis, width, height)
         aux = dataclasses.replace(aux, max_radii=torch.maximum(
             aux.max_radii, torch.where(vis, prep.radius, torch.zeros_like(prep.radius))))
         gm.adam_update(params, grads, adam, lrs)
+    with spans.span("step.readback"), torch.no_grad():
         # the frame's sums and the per-row live-pair histogram, over ranks
         row_pairs = binning.tile_count.reshape(tiles_y, tiles_x).sum(1).to(torch.float64)
         sums = all_sum(torch.cat([torch.stack([l1_s, ssim_s, dsum, ncc_s, geo_s])
@@ -577,9 +581,9 @@ def train_step_sharded(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.
                        [grads[k] for k in gm.PARAM_FIELDS]
                        + [getattr(params, k) for k in gm.PARAM_FIELDS]]
         bad = torch.stack(scalars).tolist() if scalars else []
-    s = sums[:6].tolist()
+        s = sums[:6].tolist()
+        ncc_c, geo_c = mv_counts.tolist()
     mv["mv_queries"] = int(s[5])
-    ncc_c, geo_c = mv_counts.tolist()
     ll1, ssim_val = s[0] / l1_den, s[1] / ssim_den
     dn_loss = s[2] / (height * width)
     ncc_loss = s[3] / max(ncc_c, 1) if geo_c > 0 else 0.0
@@ -594,6 +598,5 @@ def train_step_sharded(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.
             for i, kd in enumerate(("grad", "param"))}}
     return params, aux, adam, dict(
         counts, overflowed=False, loss=total, l1=ll1, ssim=ssim_val, dn_loss=dn_loss,
-        ncc_loss=ncc_loss, geo_loss=geo_loss, ncc_win_rej=0, app_grad=app_grad,
-        app_net_grad=app_net_grad, row_pairs=sums[6:].round().to(torch.int64).cpu().numpy(),
-        **mv, **nonfinite)
+        ncc_loss=ncc_loss, geo_loss=geo_loss, app_grad=app_grad, app_net_grad=app_net_grad,
+        row_pairs=sums[6:].round().to(torch.int64).cpu().numpy(), **mv, **nonfinite)

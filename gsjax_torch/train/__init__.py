@@ -8,7 +8,10 @@ is given. Every flag of gsjax's works as in gsjax: `--use_decoupled_appearance`,
 `GSJAX_NCC_COMPACT=1`, `GSJAX_NAN_PROBE=1`, `--profile_iter`, `--debug`, and
 `--ip` / `--port` (default 127.0.0.1:6009, as `train.py:15-16`: every run
 offers the SIBR viewer server; one that cannot bind prints so and trains
-on).
+on). `--profile_iter N` writes a chrome trace of steps N to N + 4 under
+`<out>/profile/`: each step is the span `train_step <it>` and holds the
+layer spans of `gsjax_torch/utils/spans.py` (`spans.SPANS`), on the
+profiler's clock with the kernels they launch.
 
 Across devices (`gsjax_torch.parallel`):
 

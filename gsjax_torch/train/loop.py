@@ -34,7 +34,10 @@ GSJAX_NAN_PROBE=1 dumps the pre-step state of the first three steps that
 leave an alive gaussian non-finite (`nan_probe_it{it}.npz`, replayed by
 `python -m gsjax_torch.nan_hunt`); a non-finite loss dumps
 `snapshot_it{it}.npz` before it raises; `--profile_iter` traces five steps
-with `torch.profiler` under `<model>/profile/`; `--debug` writes a gt |
+with `torch.profiler` under `<model>/profile/`: each step is the span
+`train_step <it>`, and inside it the layer spans of `utils/spans.py`
+(preprocess, binning, blend, losses, multi-view, backward, update);
+`--debug` writes a gt |
 render / normal | depth mosaic every 200 regularised steps under
 `<model>/debug/`; TensorBoard gets gsjax's scalars, histogram and images
 where `torch.utils.tensorboard` imports.
@@ -52,7 +55,6 @@ model; only the primary rank (rank 0) writes the scene artefacts,
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -73,6 +75,7 @@ from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.parallel import multihost, shard
 from gsjax_torch.train import losses
 from gsjax_torch.train.step import LossConfig, train_step
+from gsjax_torch.utils import spans
 from gsjax_torch.utils.schedules import expon_lr
 from gsjax_torch.utils.trajectories import apply_depth_colormap
 from gsjax_torch.viewer.network_gui import NetworkGUI
@@ -106,9 +109,11 @@ class Trainer:
     app: app_lib.AppearanceState = dataclasses.field(
         default_factory=lambda: app_lib.init_appearance("no", 0))
     random_background: bool = False
-    # device-resident gt and luma frames, LRU bounded in bytes
+    # device-resident gt and luma frames, LRU bounded in bytes; the bytes of
+    # the frames made on misses since the step began (metrics["gt_upload_bytes"])
     gt_cache_bytes: int = 512 * 1024 * 1024
     _gt_cache: dict = dataclasses.field(default_factory=dict)
+    _upload_bytes: int = 0
     debug: bool = False   # the gt / render / normal / depth mosaics
     # the NaN probe (GSJAX_NAN_PROBE=1): per-field non-finite counts from
     # the step; the pre-step state of the first three poisoned steps is
@@ -163,6 +168,7 @@ class Trainer:
 
     # --- helpers -------------------------------------------------------------
 
+    @spans.spanned("train.filter_refresh")
     def refresh_filter3d(self):
         if self.disable_filter3d:
             filt = torch.zeros(self.params.capacity, device=self.device)
@@ -199,14 +205,17 @@ class Trainer:
         fill = 1.0 if self.white_background else 0.0
         return torch.full((3,), fill, device=self.device)
 
+    @spans.spanned("train.frames")
     def _cached(self, key, make):
-        """The device frame under `key`, made by `make()` on a miss; the
-        cache evicts least recently used frames beyond gt_cache_bytes."""
+        """The device frame under `key`, made by `make()` on a miss (its bytes
+        counted in `_upload_bytes`); the cache evicts least recently used
+        frames beyond gt_cache_bytes."""
         cached = self._gt_cache.pop(key, None)        # pop + reinsert = LRU
         if cached is None:
             cached = make()
             held = sum(t.numel() * t.element_size() for t in self._gt_cache.values())
             need = cached.numel() * cached.element_size()
+            self._upload_bytes += need
             while self._gt_cache and held + need > self.gt_cache_bytes:
                 old = self._gt_cache.pop(next(iter(self._gt_cache)))
                 held -= old.numel() * old.element_size()
@@ -329,9 +338,30 @@ class Trainer:
                           patch_size=o.multi_view_patch_size, appearance=self.app.kind,
                           ncc_compact=ncc_compact, nan_stats=self.nan_probe)
 
+    def _attempt(self, view, bg, cfg, lcfg, step_args) -> dict:
+        """One try of the step on `view` (single or sharded); its metrics."""
+        if self.sharded:
+            bands = self.band_kwargs(view.camera, cfg, view.uid)
+            self.params, self.aux, self.adam, metrics = shard.train_step_sharded(
+                self.params, self.aux, self.adam, view.camera, self.gt_for(view),
+                bg, self.lrs(), cfg, lcfg, **step_args, **bands)
+            metrics["partition"] = {k: np.asarray(v).tolist() for k, v in bands.items()
+                                    if v is not None}
+        else:
+            self.params, self.aux, self.adam, metrics = train_step(
+                self.params, self.aux, self.adam, view.camera, self.gt_for(view),
+                bg, self.lrs(), cfg, lcfg, **step_args)
+        return metrics
+
     def step(self):
+        """One user iteration, inside the span `train_step <iteration>`."""
+        with spans.span(f"train_step {self.iteration + 1}"):
+            return self._step()
+
+    def _step(self):
         self.iteration += 1
         it = self.iteration
+        self._upload_bytes = 0
         o = self.opt
         if it % 1000 == 0:
             self.active_sh = min(self.active_sh + 1, self.sh_degree)
@@ -363,17 +393,11 @@ class Trainer:
         # nothing when it reports an overflow)
         for attempt in range(1, 5):
             cfg = self.raster_cfg(require_depth=reg_on)
-            if self.sharded:
-                bands = self.band_kwargs(view.camera, cfg, view.uid)
-                self.params, self.aux, self.adam, metrics = shard.train_step_sharded(
-                    self.params, self.aux, self.adam, view.camera, self.gt_for(view),
-                    bg, self.lrs(), cfg, lcfg, **step_args, **bands)
-                metrics["partition"] = {k: np.asarray(v).tolist() for k, v in bands.items()
-                                        if v is not None}
+            if attempt == 1:
+                metrics = self._attempt(view, bg, cfg, lcfg, step_args)
             else:
-                self.params, self.aux, self.adam, metrics = train_step(
-                    self.params, self.aux, self.adam, view.camera, self.gt_for(view),
-                    bg, self.lrs(), cfg, lcfg, **step_args)
+                with spans.span("train.overflow_retry"):
+                    metrics = self._attempt(view, bg, cfg, lcfg, step_args)
             if not metrics["overflowed"]:
                 break
             self.monitor_capacity(metrics)
@@ -381,6 +405,7 @@ class Trainer:
             raise RuntimeError(f"iteration {it}: tile lists still exceed "
                                f"max_per_tile={self.max_per_tile} after retries")
         metrics["attempts"] = attempt
+        metrics["gt_upload_bytes"] = self._upload_bytes
         metrics["max_per_tile"] = self.max_per_tile    # the cap this step ran with
         metrics["view"] = view.uid
         metrics["near"] = near.uid if near is not None else None
@@ -408,15 +433,16 @@ class Trainer:
 
         # densification schedule (train.py:233-258)
         if it < o.densify_until_iter:
-            if it > o.densify_from_iter and it % o.densification_interval == 0:
-                self.params, self.aux, self.adam, dstats = gm.densify_and_prune(
-                    self.params, self.aux, self.adam, self.generator,
-                    o.densify_grad_threshold, 0.05, self.scene.radius, o.percent_dense)
-                metrics["densify"] = dstats
-                self.refresh_filter3d()
-            if it % o.opacity_reset_interval == 0 or (
-                    self.white_background and it == o.densify_from_iter):
-                gm.reset_opacity(self.params, self.aux, self.adam)
+            with spans.span("train.densify"):
+                if it > o.densify_from_iter and it % o.densification_interval == 0:
+                    self.params, self.aux, self.adam, dstats = gm.densify_and_prune(
+                        self.params, self.aux, self.adam, self.generator,
+                        o.densify_grad_threshold, 0.05, self.scene.radius, o.percent_dense)
+                    metrics["densify"] = dstats
+                    self.refresh_filter3d()
+                if it % o.opacity_reset_interval == 0 or (
+                        self.white_background and it == o.densify_from_iter):
+                    gm.reset_opacity(self.params, self.aux, self.adam)
         elif it % 100 == 0 and not self.disable_filter3d and it < o.iterations - 100:
             self.refresh_filter3d()
 
@@ -672,8 +698,9 @@ def _train(lp, op, pp, args, dev, on_step, gui, n_ranks):
     save_iters = set(getattr(args, "save_iterations", [7000, 30000])) | {op.iterations}
     ckpt_iters = set(getattr(args, "checkpoint_iterations", [15000]))
     # TensorBoard where it imports, and a torch.profiler trace of the five
-    # steps from profile_iter (gsjax loop.py:735-771), both closed (the trace
-    # written) even when a step raises
+    # steps from profile_iter (gsjax loop.py:735-771; the steps' layer spans
+    # are Trainer.step's own), both closed (the trace written) even when a
+    # step raises
     profile_iter = int(getattr(args, "profile_iter", 0) or 0)
     prof = None
     tb = _tensorboard(lp.model_path) if primary else None
@@ -696,10 +723,7 @@ def _train(lp, op, pp, args, dev, on_step, gui, n_ranks):
             if profile_iter and trainer.iteration + 1 == profile_iter and primary:
                 prof = _profiler(dev)
                 prof.start()
-            span = (torch.profiler.record_function(f"train_step {trainer.iteration + 1}")
-                    if prof is not None else contextlib.nullcontext())
-            with span:
-                metrics = trainer.step()
+            metrics = trainer.step()
             if prof is not None and trainer.iteration >= profile_iter + 4:
                 stop_profile()
             it = trainer.iteration

@@ -39,6 +39,7 @@ from gsjax_torch.ops.raster.api import select
 from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.ops.raster.config import RasterConfig
 from gsjax_torch.ops.sample import _project_points, sample_depth
+from gsjax_torch.utils import spans
 
 
 def _invert_rigid(wv: torch.Tensor) -> torch.Tensor:
@@ -50,6 +51,7 @@ def _invert_rigid(wv: torch.Tensor) -> torch.Tensor:
     return inv
 
 
+@spans.spanned("mv.geo")
 def _geo_terms(pts_world, median_depth, means3d, scales, rotations, opacities,
                alive, ref_cam: Camera, near_cam: Camera, cfg: RasterConfig,
                pixel_noise_th, row_offset=0):
@@ -102,6 +104,7 @@ def backproject(median_depth: torch.Tensor, cam: Camera, row_offset: int = 0) ->
     return rowwise.affine(pts_cam, inv_r[:3, :3], inv_r[:3, 3])
 
 
+@spans.spanned("mv.patchmatch")
 def patchmatch_terms(median_depth: torch.Tensor, normal: torch.Tensor,
                      means3d, scales, rotations, opacities, alive,
                      ref_cam: Camera, near_cam: Camera,

@@ -27,6 +27,7 @@ from gsjax_torch.ops.raster import render
 from gsjax_torch.ops.raster.camera import Camera
 from gsjax_torch.ops.raster.config import RasterConfig
 from gsjax_torch.train import losses, multiview
+from gsjax_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +85,12 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
         app_leaves += [p for layer in net_tree.values() for p in layer.values()]
 
     tap = torch.zeros(params.capacity, 2, device=params.xyz.device, requires_grad=True)
-    scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
-    out = render(params.xyz, scales, params.rotation, opac, gm.get_features(params),
-                 camera, cfg, bg, sg_axis=gm.get_sg_axis(params),
-                 sg_sharpness=gm.get_sg_sharpness(params), sg_color=params.sg_color,
+    with spans.span("model.activate"):
+        scales, opac = gm.scaling_n_opacity_with_3d_filter(params, aux.filter_3d)
+        shs, sg_axis = gm.get_features(params), gm.get_sg_axis(params)
+        sg_sharpness = gm.get_sg_sharpness(params)
+    out = render(params.xyz, scales, params.rotation, opac, shs, camera, cfg, bg,
+                 sg_axis=sg_axis, sg_sharpness=sg_sharpness, sg_color=params.sg_color,
                  alive=aux.alive, mean2d_offset=tap)
     counts = dict(num_pairs=out["num_pairs"], num_live_pairs=out["num_live_pairs"],
                   max_tile_count=out["max_tile_count"])
@@ -95,21 +98,23 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
         return params, aux, adam, dict(counts, overflowed=True)
 
     img = out["render"]
-    if kind == "gs":
-        ll1 = losses.l1_appearance_gs(img, gt_image, app_embedding)
-    elif kind == "pgsr":
-        ll1 = losses.l1_appearance_pgsr(img, gt_image, app_embedding)
-    elif kind == "gof":
-        ll1 = app_lib.l1_appearance_gof(img, gt_image, app_net, app_embedding)
-    else:
-        ll1 = losses.l1_loss(img, gt_image)
-    ssim_val = losses.ssim(img, gt_image)
-    rgb_loss = (1 - loss_cfg.lambda_dssim) * ll1 + loss_cfg.lambda_dssim * (1 - ssim_val)
+    with spans.span("loss.image"):
+        if kind == "gs":
+            ll1 = losses.l1_appearance_gs(img, gt_image, app_embedding)
+        elif kind == "pgsr":
+            ll1 = losses.l1_appearance_pgsr(img, gt_image, app_embedding)
+        elif kind == "gof":
+            ll1 = app_lib.l1_appearance_gof(img, gt_image, app_net, app_embedding)
+        else:
+            ll1 = losses.l1_loss(img, gt_image)
+        ssim_val = losses.ssim(img, gt_image)
+        rgb_loss = (1 - loss_cfg.lambda_dssim) * ll1 + loss_cfg.lambda_dssim * (1 - ssim_val)
     dn_loss = torch.zeros((), device=img.device)
     if loss_cfg.reg_on and loss_cfg.lambda_depth_normal > 0 and cfg.require_depth:
-        dnormal, valid = losses.depth_to_normal(out["median_depth"], camera.fx,
-                                                camera.fy, camera.cx, camera.cy)
-        dn_loss = losses.depth_normal_loss(out["normal"], dnormal, valid)
+        with spans.span("loss.depth_normal"):
+            dnormal, valid = losses.depth_to_normal(out["median_depth"], camera.fx,
+                                                    camera.fy, camera.cx, camera.cy)
+            dn_loss = losses.depth_normal_loss(out["normal"], dnormal, valid)
     ncc_loss = geo_loss = torch.zeros((), device=img.device)
     mv = dict(mv_queries=0, mv_max_tile_count=0, mv_blocks=0)
     if (loss_cfg.reg_on and loss_cfg.mv_on and cfg.require_depth
@@ -124,7 +129,8 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
              + loss_cfg.lambda_mv_ncc * ncc_loss + loss_cfg.lambda_mv_geo * geo_loss)
 
     leaves = [getattr(params, k) for k in gm.PARAM_FIELDS]
-    g_all = torch.autograd.grad(total, leaves + [tap] + app_leaves, allow_unused=True)
+    with spans.span("step.backward"):
+        g_all = torch.autograd.grad(total, leaves + [tap] + app_leaves, allow_unused=True)
     g_leaves, g2d, g_app = g_all[:len(leaves)], g_all[len(leaves)], g_all[len(leaves) + 1:]
     app_grad = g_app[0] if kind != "no" else None
     app_net_grad = None
@@ -139,14 +145,15 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
         m = aux.alive.reshape((-1,) + (1,) * (g.dim() - 1))
         return torch.where(m, g, torch.zeros_like(g))
 
-    grads = {k: mask(g, p) for k, g, p in zip(gm.PARAM_FIELDS, g_leaves, leaves)}
-    g2d = mask(g2d, tap)
-    with torch.no_grad():
+    with spans.span("step.update"), torch.no_grad():
+        grads = {k: mask(g, p) for k, g, p in zip(gm.PARAM_FIELDS, g_leaves, leaves)}
+        g2d = mask(g2d, tap)
         vis = out["visibility"]
         aux = gm.add_densification_stats(aux, g2d, vis, camera.width, camera.height)
         aux = dataclasses.replace(aux, max_radii=torch.maximum(
             aux.max_radii, torch.where(vis, out["radii"], torch.zeros_like(out["radii"]))))
         gm.adam_update(params, grads, adam, lrs)
+    with spans.span("step.readback"), torch.no_grad():
         scalars = [total, ll1, ssim_val, dn_loss, ncc_loss, geo_loss]
         if loss_cfg.nan_stats:
             scalars += [nonfinite_count(t, aux.alive) for t in
@@ -160,12 +167,10 @@ def train_step(params: gm.GaussianParams, aux: gm.GaussianAux, adam: gm.AdamStat
         nonfinite = {"nonfinite": {
             kind: {k: int(c) for k, c in zip(gm.PARAM_FIELDS, bad[i * n:(i + 1) * n])}
             for i, kind in enumerate(("grad", "param"))}}
-    # ncc_win_rej: gsjax's count of taps lost to its TPU sampler's window;
-    # the port samples every tap
     return params, aux, adam, dict(counts, overflowed=False, loss=loss, l1=l1v,
                                    ssim=ssv, dn_loss=dnv, ncc_loss=nccv, geo_loss=geov,
-                                   ncc_win_rej=0, app_grad=app_grad,
-                                   app_net_grad=app_net_grad, **mv, **nonfinite)
+                                   app_grad=app_grad, app_net_grad=app_net_grad, **mv,
+                                   **nonfinite)
 
 
 def nonfinite_count(t: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:

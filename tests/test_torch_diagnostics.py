@@ -269,7 +269,8 @@ def test_profile_trace_has_five_steps(diag_run):
     out, _ = diag_run
     with open(os.path.join(out, "profile", "trace_it196.json")) as f:
         events = json.load(f)["traceEvents"]
-    spans = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+    # the step's own span: an op-scope profiler range (utils/spans.py)
+    spans = sorted(e["name"] for e in events if e.get("cat") == "cpu_op"
                    and e["name"].startswith("train_step"))
     assert spans == [f"train_step {i}" for i in range(196, 201)]
 
