@@ -25,7 +25,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
               B2 launch on the same inputs equal to the first bit for bit;
   slice       the render CLI (`gsjax_torch.render.main`) on a 2-view
               1920x1080 COLMAP scene and a 100k-gaussian PLY made from a
-              seed; B1's launches must equal the number of views;
+              seed; B1's launches and the preprocess forward's must equal
+              the number of views;
+  sum_orders  the float32 orders of torch's CUDA sums, norms and scalar
+              divisions that `csrc/preprocess_common.cuh` copies, probed
+              against each order written out on the host; the line carries
+              torch's and CUDA's versions, and another order fails by name;
+  parity_preprocess  the preprocess kernel pair (`csrc/preprocess_fwd.cu`,
+              `preprocess_bwd.cu`) against its twin `preprocess_ref` (torch
+              autograd for the VJP) at both benchmark configurations' shapes
+              and options (gsbench/configs: 2^21 rows with SH 3 and no SG,
+              2^22 with SH 2 and 7 SG lobes, kernel_size 0, dead rows past
+              the alive count; the scene `gsbench/scenes.py` makes from a
+              seed, its first two views): the integer fields equal on all
+              but PP_INT_ROWS of the rows, the float fields within PP_TOL of
+              their largest twin magnitude; the VJP through the autograd
+              Function `Preprocess`, as training runs it, on a seeded
+              cotangent, on a training loss's through the blend kernels, and
+              on a view and an SH-0 neighbour view sharing the leaves as in
+              train_step: each leaf's gradient within PP_TOL, the VJP's zeros
+              the twin's (the share of each leaf's elements with |g| >
+              PP_EPS on one side only at most PP_SUPPORT; with the
+              neighbour, no element zero on one side only, and the
+              rotation's gradient bit-equal) there and on every case of
+              `tests/preprocess_cases.py`; a two-shard split of the rows
+              equal to the full launch bit for bit; the kernels' and the
+              twin's CUDA-event times beside the byte bound, and the device
+              events of each path's forward + VJP;
   parity_sample  kernels B3 / B5 (the point query and its VJP) against their
               twins in `ops/sample_ref.py`, on a reference arc view's
               depth-valid pixels queried in its neighbour, at 640x360 / 20k
@@ -44,7 +70,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               6-view 1920x1080 scene initialised from 100k points, densify
               at 20 and 30, regularisation from 21 with gsjax's default
               multi-view lambdas; B2's launches must equal the steps, B3's,
-              B5's and B6's the steps that ran the multi-view losses;
+              B5's and B6's the steps that ran the multi-view losses, the
+              preprocess forward's B1's and B3's together, its VJP's B2's
+              and B5's;
   train_options  the same CLI run with GSJAX_NCC_COMPACT=1 and GOF's
               appearance model (`--use_decoupled_appearance 2`):
               `warp_sample_blocks` launched once per multi-view step and the
@@ -237,8 +265,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the phase's own binning's, the full step's loss to
               `timing_train`'s within 1e-5, the model's n = 1 row to the full
               step, B3 / B5 / B6 among the traced kernels.
-Then the `kernels` line (seven entries: B6 appears twice, as `warp_sample`
-on the dense NCC and as `warp_sample_blocks` on the compacted one; each with
+Then the `kernels` line (nine entries: B6 appears twice, as `warp_sample`
+on the dense NCC and as `warp_sample_blocks` on the compacted one, and the
+preprocess pair with its times by configuration; the others each with
 its launches by path: render, train, train_compact, mesh, evaluate, viewer,
 diagnostics, multi_gpu (summed over the two ranks), golden, bench (summed
 over every entry run), profile, multihost (summed over the four ranks); B1
@@ -328,6 +357,23 @@ DD_RTOL, DD_ATOL, DD_FRAC = 1e-2, 1e-3, 0.999
 # gaussians, every one within 1e-3.
 BWD_TOL, BWD_FRAC, BWD_MAX = 1e-4, 0.9999, 1e-3
 GAUSS_TOL, GAUSS_FRAC, GAUSS_MAX = 1e-4, 0.9999, 1e-3
+
+# The preprocess kernel pair (csrc/preprocess_fwd.cu, preprocess_bwd.cu)
+# against its twin `preprocess_ref` (torch autograd for the VJP) on the card,
+# at the benchmark configurations' shapes (gsbench/configs: 2^21 rows with
+# SH 3, 2^22 with SH 2 and 7 SG lobes, kernel_size 0, dead rows past the
+# alive count). The kernels repeat the twin's float32 ops in PyTorch's CUDA
+# order (csrc/preprocess_common.cuh), so the integer fields may differ on
+# PP_INT_ROWS of the rows at most (an ulp tie), and the float fields and each
+# leaf's gradient sit within PP_TOL of their largest finite twin magnitude
+# (the twin's SG lobes and its autograd sums round in other orders). The
+# VJP's zeros are the twin's: on every leaf, the share of elements with
+# |g| > PP_EPS on exactly one side is at most PP_SUPPORT (Adam's first update
+# moves each such element by a whole learning rate).
+PP_INT_ROWS = 1e-6
+PP_TOL = 1e-5
+PP_SUPPORT, PP_EPS = 1e-5, 1e-13
+PP_SEED = 20261018
 
 # fp32 operations B2 needs, per (pair, pixel) interaction, counted from
 # csrc/blend_bwd.cu as OPS_* above: the alpha test for every pair before
@@ -749,6 +795,326 @@ def phase_parity_bwd(width, height, n, dev, require_depth):
     return out, twin_ms
 
 
+def preprocess_cases():
+    """tests/preprocess_cases.py, loaded by its path: an installed package
+    named `tests` may shadow the repository's directory."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "preprocess_cases", os.path.join(ROOT, "tests", "preprocess_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def preprocess_inputs(config, dev):
+    """A benchmark configuration's gaussians (gsbench/scenes.py, seeded) as
+    the trainer activates them, its first two orbit views and its options ->
+    (the eight inputs, camera, the neighbour's camera, RasterConfig, alive)."""
+    import torch
+
+    from gsbench import scenes
+    from gsjax_torch.model import gaussians as gm
+    from gsjax_torch.ops.raster import Camera, RasterConfig
+
+    with open(os.path.join(ROOT, "gsbench", "configs", f"{config}.json")) as f:
+        spec = json.load(f)
+    scene = scenes.make_scene(spec, PP_SEED, dev, targets=False)
+    with torch.no_grad():
+        params = gm.GaussianParams(**{k: scene.params[k] for k in gm.PARAM_FIELDS})
+        scales, opac = gm.scaling_n_opacity_with_3d_filter(
+            params, scenes.filter_3d(params.xyz, scene.views))
+        inputs = [params.xyz, scales, params.rotation, opac, gm.get_features(params),
+                  gm.get_sg_axis(params), gm.get_sg_sharpness(params), params.sg_color]
+        inputs = [t.detach().contiguous() for t in inputs]
+    cfg = RasterConfig(sh_degree=spec["sh_degree"], sg_degree=spec["sg_degree"],
+                       kernel_size=spec["kernel_size"], max_per_tile=1 << 16)
+    if cfg.sg_degree == 0:
+        inputs[5:] = [None, None, None]
+    cam, near = (Camera.create(v.R, v.T, v.fovx, v.fovy, v.width, v.height, device=dev)
+                 for v in scene.views[:2])
+    return tuple(inputs), cam, near, cfg, scene.alive
+
+
+def render_cotangent(prep, cam, cfg, seed):
+    """The cotangent of the preprocess fields under a training loss (L1 +
+    D-SSIM against a seeded frame, the depth-normal term) through binning,
+    the pair gather and the blend kernels: exact zeros on rows without a
+    pair, as in a step."""
+    import torch
+
+    from gsjax_torch.ops.raster import render_cuda, render_ref
+    from gsjax_torch.ops.raster import preprocess as pp
+    from gsjax_torch.ops.raster.binning import bin_gaussians
+    from gsjax_torch.train import losses
+
+    leaves = {k: getattr(prep, k).detach().requires_grad_(True) for k in pp.GRAD_FIELDS}
+    prep_g = dataclasses.replace(prep, **leaves)
+    binning = bin_gaussians(prep_g, cfg, cam.width, cam.height)
+    feats = render_ref.prepare_pairs(prep_g, binning)
+    bg = torch.zeros(3, device=feats.device)
+    planes = render_cuda.Blend.apply(feats, binning.tile_start, binning.tile_count, cam.width,
+                                     cam.height, cam.fx, cam.fy, bg, cfg, render_cuda.blend_fwd,
+                                     render_cuda.blend_bwd)
+    img = render_ref.planes_to_images(planes)
+    gen = torch.Generator(device=feats.device).manual_seed(seed)
+    gt = torch.rand(cam.height, cam.width, 3, generator=gen, device=feats.device)
+    dnormal, valid = losses.depth_to_normal(img["median_depth"], cam.fx, cam.fy, cam.cx, cam.cy)
+    loss = (0.8 * losses.l1_loss(img["color"], gt) + 0.2 * (1 - losses.ssim(img["color"], gt))
+            + 0.05 * losses.depth_normal_loss(img["normal"], dnormal, valid))
+    got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(leaves.values(), got)]
+
+
+def preprocess_vjp(fn, inputs, views, alive):
+    """The gradients of `fn` (`preprocess`, the kernel pair through its
+    autograd Function, or the twin `preprocess_ref`) on one set of leaves
+    read by each of `views` [(camera, cfg, cotangents, neighbour)] in turn,
+    under one `autograd.grad` as in train_step: a neighbour view reads the
+    SH-0 colour of `sample.prepare_view` (zeros, no SG), and the engine adds
+    its parts before the earlier view's -> a gradient per input."""
+    import torch
+
+    from gsjax_torch.ops.raster import preprocess as pp
+
+    leaves = [None if t is None else t.clone().requires_grad_(True) for t in inputs]
+    outs, cots = [], []
+    for cam, cfg, cot, near in views:
+        args = leaves
+        if near:
+            shs0 = leaves[0].new_zeros(leaves[0].shape[0], 1, 3)
+            args = leaves[:4] + [shs0, None, None, None]
+        out = fn(*args, cam, cfg, alive)
+        outs += [getattr(out, k) for k in pp.GRAD_FIELDS]
+        cots += cot
+    # the twin's SH-0 colour reads no leaf (its cotangent is zero)
+    pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+    wrt = [t for t in leaves if t is not None]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [c for _, c in pairs],
+                                   allow_unused=True))
+    return [None if t is None else next(got) for t in leaves]
+
+
+def compare_vjp(kernel, twin, alive):
+    """Per leaf: the largest error over the twin's largest |gradient|, the
+    share of elements with |g| > PP_EPS on exactly one side, the elements
+    exactly zero on one side only and whether all are bit-equal (the twin's
+    dead rows zeroed, as the step masks them); the kernel's dead rows must
+    be 0."""
+    import torch
+
+    from gsjax_torch.ops.raster import preprocess as pp
+
+    out = {}
+    for name, k, t in zip(pp.INPUTS, kernel, twin):
+        if k is None and t is None:
+            continue
+        check(k is not None and t is not None, f"{name}: a gradient on one side only")
+        m = alive.reshape((-1,) + (1,) * (t.dim() - 1))
+        t = torch.where(m, t, torch.zeros_like(t))
+        fin = torch.isfinite(t)
+        scale = float(t[fin].abs().max()) if fin.any() else 0.0
+        out[name] = {
+            "rel_err": float((k - t)[fin].abs().max()) / scale if scale else 0.0,
+            "support_share": float(((k.abs() > PP_EPS) != (t.abs() > PP_EPS)).float().mean()),
+            "zero_elsewhere": int(((k == 0) != (t == 0)).sum()),
+            "bit_equal": bool(torch.equal(k, t)),
+            "finite": bool(torch.isfinite(k[fin]).all()),
+            "dead_rows_zero": bool((k[~alive] == 0).all())}
+    return out
+
+
+def phase_sum_orders(dev):
+    """The float32 orders of torch's CUDA ops that the preprocess kernels
+    copy (csrc/preprocess_common.cuh: `sum3`, `sum3_mid`, `sum4`, `norm3`,
+    `norm4`, `tensor / scalar`, `scalar / tensor`), each probed on seeded
+    rows against the order written out on the host. They were read from
+    torch 2.11 + CUDA 12.8; a torch or CUDA that adds in another order fails
+    here by name, before the parity phases read the differences it makes in
+    the bits (and the zeros) of the VJP."""
+    import torch
+
+    rng = np.random.default_rng(PP_SEED)
+
+    def rows(*shape):   # contiguous, as the twin's operands; magnitudes 2^-6..2^6
+        x = (rng.standard_normal(shape) * np.exp2(rng.integers(-6, 7, shape))).astype(np.float32)
+        return x, torch.from_numpy(x).to(dev)
+
+    host = lambda y: y.cpu().numpy()
+    x3, t3 = rows(1 << 18, 3)
+    x4, t4 = rows(1 << 18, 4)
+    xm, tm = rows(1 << 15, 3, 3, 3)
+    a, b, c = x3.T
+    q0, q1, q2, q3 = x4.T
+    s, one = np.float32(1234.5678), np.float32(1)
+    got = {
+        "sum3": (host(t3.sum(-1)), (a + c) + b),
+        "sum3_mid": (host(tm.sum(2)), (xm[:, :, 0] + xm[:, :, 1]) + xm[:, :, 2]),
+        "sum4": (host(t4.sum(-1, keepdim=True))[:, 0], (q0 + q2) + (q1 + q3)),
+        "norm3": (host(torch.linalg.norm(t3, dim=-1)), np.sqrt((a * a + c * c) + b * b)),
+        "norm4": (host(torch.linalg.norm(t4, dim=-1, keepdim=True))[:, 0],
+                  np.sqrt((q0 * q0 + q2 * q2) + (q1 * q1 + q3 * q3))),
+        "tensor/scalar": (host(t4 / float(s)), x4 * (one / s)),
+        "scalar/tensor": (host(float(s) / t4), s * (one / x4)),
+    }
+    share = {k: float(np.mean(g == w)) for k, (g, w) in got.items()}
+    line = {"phase": "sum_orders", "torch": torch.__version__, "cuda": torch.version.cuda,
+            "device": torch.cuda.get_device_name(0), "equal_share": share}
+    emit(line)
+    off = {k: v for k, v in share.items() if v < 1.0}
+    check(not off, f"torch {torch.__version__} + CUDA {torch.version.cuda} rounds {sorted(off)} "
+          f"in another order than csrc/preprocess_common.cuh copies (share of rows equal: "
+          f"{off}): the preprocess kernels' bits, and the zeros of their VJP, no longer "
+          f"follow the twin; write the new orders into the header")
+    return line
+
+
+def phase_parity_preprocess(config, dev):
+    """The preprocess kernel pair against its twin at a benchmark
+    configuration's shapes: the forward's fields; the VJP through the
+    autograd Function `Preprocess`, as training runs it, on a seeded and on a
+    training loss's cotangent, on a view and an SH-0 neighbour view that
+    share the leaves (as train_step), and on the support cases of
+    tests/preprocess_cases.py; a two-shard split of the rows against the full
+    launch; the times of both beside their byte bound; returns the line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsjax_torch.ops.raster import preprocess as pp
+
+    pc = preprocess_cases()
+    inputs, cam, near_cam, cfg, alive = preprocess_inputs(config, dev)
+    n = inputs[0].shape[0]
+    kf = pp.preprocess_fwd(*inputs, cam, cfg, alive)
+    tf = pp.preprocess_ref(*inputs, cam, cfg, alive)
+    torch.cuda.synchronize()
+    fields, int_rows = {}, torch.zeros(n, dtype=torch.bool, device=dev)
+    for k in pp.FIELDS:
+        a, b = getattr(kf, k), getattr(tf, k)
+        if k in pp.INT_FIELDS:
+            d = (a != b).reshape(n, -1).any(1)
+            int_rows |= d
+            fields[k] = {"rows_differ": int(d.sum())}
+        else:
+            fin = torch.isfinite(b)
+            scale = float(b[fin].abs().max())
+            fields[k] = {"rel_err": float((a - b)[fin].abs().max()) / scale,
+                         "bit_equal_share": float((a == b).float().mean()),
+                         "inf_equal": bool(torch.equal(torch.isinf(a), torch.isinf(b)))}
+    ties = [{k: getattr(side, k)[i].tolist() for k in ("radius", "rect_min", "rect_wh",
+                                                       "mean2d", "conic")}
+            for i in torch.nonzero(int_rows).flatten()[:4].tolist() for side in (kf, tf)]
+
+    rng = torch.Generator(device=dev).manual_seed(PP_SEED)
+    live = (alive & tf.valid).float()
+    live = live * (torch.rand(n, generator=rng, device=dev) > 0.01)
+    seeded = []
+    for k, w in pp.GRAD_FIELDS.items():
+        c = torch.randn(n, w, generator=rng, device=dev) * live[:, None]
+        seeded.append(c[:, 0].contiguous() if w == 1 else c)
+    del tf
+    trained = render_cotangent(kf, cam, cfg, PP_SEED)
+    # the neighbour's cotangent as a multi-view query leaves it: no colour
+    cfg0 = dataclasses.replace(cfg, sh_degree=0, sg_degree=0)
+    near_prep = pp.preprocess_fwd(*inputs[:4], inputs[0].new_zeros(n, 1, 3), None, None,
+                                  None, near_cam, cfg0, alive)
+    near_cot = render_cotangent(near_prep, near_cam, cfg0, PP_SEED + 1)
+    near_cot[list(pp.GRAD_FIELDS).index("color")].zero_()
+    del near_prep
+    vjp = {}
+    for tag, views in (("seeded", [(cam, cfg, seeded, False)]),
+                       ("trained", [(cam, cfg, trained, False)]),
+                       ("two_views", [(cam, cfg, trained, False),
+                                      (near_cam, cfg0, near_cot, True)])):
+        k = preprocess_vjp(pp.preprocess, inputs, views, alive)
+        t = preprocess_vjp(pp.preprocess_ref, inputs, views, alive)
+        vjp[tag] = compare_vjp(k, t, alive)
+        del k, t
+    case_fail = {}
+    for name, case in pc.cases(dev).items():
+        c_in, c_cam, c_cfg, c_alive, c_cot = pc.build(case, dev)
+        views = [(c_cam, c_cfg, c_cot, False)]
+        k = preprocess_vjp(pp.preprocess, c_in, views, c_alive)
+        t = preprocess_vjp(pp.preprocess_ref, c_in, views, c_alive)
+        c_alive = (torch.ones(len(case.rows), dtype=torch.bool, device=dev)
+                   if c_alive is None else c_alive)
+        bad = pc.failures(case, k) + [
+            f"{leaf}: {v}" for leaf, v in compare_vjp(k, t, c_alive).items()
+            if v["zero_elsewhere"] or not v["dead_rows_zero"]]
+        if bad:
+            case_fail[name] = bad[:4]
+
+    # two shards of the rows against the full launch, bit for bit
+    half = n // 2
+    parts = [slice(0, half), slice(half, n)]
+    part = lambda t, s: None if t is None else t[s]
+    shard_equal = True
+    full_g = pp.preprocess_bwd(inputs, cam, cfg, alive, trained)
+    for s in parts:
+        f = pp.preprocess_fwd(*(part(t, s) for t in inputs), cam, cfg, alive[s])
+        g = pp.preprocess_bwd([part(t, s) for t in inputs], cam, cfg, alive[s],
+                              [c[s] for c in trained])
+        shard_equal &= all(torch.equal(getattr(f, k), getattr(kf, k)[s]) for k in pp.FIELDS)
+        shard_equal &= all(torch.equal(a, b[s]) for a, b in zip(g, full_g) if a is not None)
+
+    # times at this size, and the launches of each path
+    leaves = [None if t is None else t.clone().requires_grad_(True) for t in inputs]
+    wrt = [t for t in leaves if t is not None]
+
+    def fwd_bwd(fn):
+        out = fn(*leaves, cam, cfg, alive)
+        return torch.autograd.grad([getattr(out, k) for k in pp.GRAD_FIELDS], wrt, trained,
+                                   allow_unused=True)
+
+    ms = {"kernel_fwd": event_ms(lambda: pp.preprocess_fwd(*inputs, cam, cfg, alive)),
+          "kernel_bwd": event_ms(lambda: pp.preprocess_bwd(inputs, cam, cfg, alive, trained)),
+          "kernel_fwd_bwd": event_ms(lambda: fwd_bwd(pp.preprocess)),
+          "twin_fwd": event_ms(lambda: pp.preprocess_ref(*inputs, cam, cfg, alive), reps=3),
+          "twin_fwd_bwd": event_ms(lambda: fwd_bwd(pp.preprocess_ref), reps=3)}
+    launches = {}
+    for tag, fn in (("kernel", pp.preprocess), ("twin", pp.preprocess_ref)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fwd_bwd(fn)
+            torch.cuda.synchronize()
+        launches[tag] = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    bands = inputs[4].shape[1]
+    lobes = cfg.sg_degree and inputs[5].shape[1]
+    in_b = 4 * (3 + 3 + 4 + 1) + 1 + 12 * bands + 28 * lobes
+    fwd_b, bwd_b = n * (in_b + 93), n * (in_b + 68 + in_b - 1)
+    bound = {"fwd_ms": fwd_b / PEAK_BYTES_S * 1e3, "bwd_ms": bwd_b / PEAK_BYTES_S * 1e3,
+             "fwd_bytes": fwd_b, "bwd_bytes": bwd_b}
+    line = {"phase": "parity_preprocess", "config": config, "rows": n,
+            "alive": int(alive.sum()), "valid": int(kf.valid.sum()),
+            "sh_degree": cfg.sh_degree, "sg_degree": cfg.sg_degree, "fields": fields,
+            "int_rows_differ": int(int_rows.sum()), "int_ties": ties, "vjp": vjp,
+            "support_cases": len(pc.cases(dev)), "support_case_failures": case_fail,
+            "shards_bit_equal": bool(shard_equal), "ms": ms, "bound": bound,
+            "device_events_fwd_bwd": launches}
+    emit(line)
+    check(int(int_rows.sum()) <= PP_INT_ROWS * n, f"{config}: integer fields differ on "
+          f"{int(int_rows.sum())} rows: {ties}")
+    for k, v in fields.items():
+        if "rel_err" in v:
+            check(v["rel_err"] <= PP_TOL and v["inf_equal"], f"{config}: field {k}: {v}")
+    for tag, per in vjp.items():
+        for leaf, v in per.items():
+            check(v["rel_err"] <= PP_TOL, f"{config} {tag}: gradient of {leaf}: {v}")
+            check(v["support_share"] <= PP_SUPPORT, f"{config} {tag}: support of {leaf}: {v}")
+            check(v["finite"] and v["dead_rows_zero"], f"{config} {tag}: {leaf}: {v}")
+    # as train_step reads the leaves: the twin's zeros on every leaf, and its
+    # bits on the rotation, whose gradient along the in-plane turn is round-off
+    for leaf, v in vjp["two_views"].items():
+        check(v["zero_elsewhere"] == 0, f"{config} two views: zeros of {leaf}: {v}")
+    check(vjp["two_views"]["rotations"]["bit_equal"],
+          f"{config} two views: the rotation's gradient is not the twin's bits: "
+          f"{vjp['two_views']['rotations']}")
+    check(not case_fail, f"{config}: support cases: {case_fail}")
+    check(shard_equal, f"{config}: two shards differ from the full launch")
+    return line
+
+
 def bench_pose(i, n):
     """arc_pose around bench.py's scene centre (0, 0, 5)."""
     from gsjax_torch.data.synth import arc_pose
@@ -758,7 +1124,7 @@ def bench_pose(i, n):
 
 
 def phase_slice(dev, n_views=2, width=1920, height=1080, n=100_000):
-    """The render CLI on a seeded scene; returns the kernel's launches."""
+    """The render CLI on a seeded scene; returns {kernel: launches}."""
     import torch
 
     from gsjax_torch import render as render_cli
@@ -806,19 +1172,23 @@ def phase_slice(dev, n_views=2, width=1920, height=1080, n=100_000):
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     counts = read_launches()
-    launches = counts.pop("blend_fwd")
+    served = {k: counts.pop(k) for k in ("blend_fwd", "preprocess_fwd")}
+    launches = served["blend_fwd"]
 
     out_dir = os.path.join(model_dir, "train", "ours_30000")
     files = {d: sorted(os.listdir(os.path.join(out_dir, d)))
              for d in ("renders", "gt", "depth")}
     emit({"phase": "slice", "views": n_views, "width": width, "height": height,
           "gaussians": n, "setup_s": setup_s, "cli_s": cli_s,
-          "blend_fwd_launches": launches, "files": {k: len(v) for k, v in files.items()},
+          "blend_fwd_launches": launches, "preprocess_fwd_launches": served["preprocess_fwd"],
+          "files": {k: len(v) for k, v in files.items()},
           "per_view": stats})
     want = [f"{i:05d}.png" for i in range(n_views)]
     check(all(v == want for v in files.values()), f"PNG tree {files}")
     check(len(stats) == n_views, "not every view rendered")
     check(launches == n_views, f"blend_fwd launched {launches} times for {n_views} views")
+    check(served["preprocess_fwd"] == n_views,
+          f"preprocess_fwd launched {served['preprocess_fwd']} times for {n_views} views")
     check(not any(counts.values()), f"training kernels launched while serving: {counts}")
     for s in stats:
         check(s["finite"], f"view {s['view']} has non-finite output")
@@ -827,7 +1197,7 @@ def phase_slice(dev, n_views=2, width=1920, height=1080, n=100_000):
               f"view {s['view']} alpha coverage {s['alpha_mean']}")
         check(s["median_depth_valid_frac"] > 0.01, f"view {s['view']} has no median depth")
     shutil.rmtree(WORK, ignore_errors=True)
-    return launches
+    return served
 
 
 def reset_launches():
@@ -978,6 +1348,13 @@ def phase_train(dev, n_views=6, width=1920, height=1080, n=100_000, steps=40,
           f"blend_bwd launched {launches['blend_bwd']} times for {steps} steps")
     check(launches["blend_fwd"] == sum(r["attempts"] for r in log),
           f"blend_fwd launched {launches['blend_fwd']} times")
+    # preprocess runs for each attempt's view and each query's neighbour, and
+    # its VJP with B2 (the view) and B5 (the neighbour)
+    for side, view, near in (("fwd", "blend_fwd", "sample_fwd"), ("bwd", "blend_bwd",
+                                                                  "sample_bwd")):
+        check(launches[f"preprocess_{side}"] == launches[view] + launches[near] > 0,
+              f"preprocess_{side} launched {launches[f'preprocess_{side}']} times for "
+              f"{launches[view]} {view} and {launches[near]} {near}")
     check(all(np.isfinite(x) for x in step_losses), "non-finite loss")
     check(all(v.nearest_ids for v in trainer.scene.train_views), "a view has no neighbour")
     check(len(mv) >= 5, f"only {len(mv)} steps ran the multi-view losses")
@@ -2052,8 +2429,12 @@ def phase_mesh(dev, n_views=8, width=1920, height=1080, n=20_000, voxel=0.01):
           f"integrate_fwd launched {tet['integrate_fwd']} times, want {want_b4}")
     check(tsdf["blend_fwd"] == n_views,
           f"blend_fwd launched {tsdf['blend_fwd']} times for {n_views} views")
-    others = {k: v for k, v in total.items() if k not in ("integrate_fwd", "blend_fwd")}
+    others = {k: v for k, v in total.items()
+              if k not in ("integrate_fwd", "blend_fwd", "preprocess_fwd")}
     check(not any(others.values()), f"other kernels launched while meshing: {others}")
+    check(tsdf["preprocess_fwd"] == n_views and tet["preprocess_fwd"] >= n_views,
+          f"preprocess_fwd launched {tsdf['preprocess_fwd']} (TSDF) and "
+          f"{tet['preprocess_fwd']} (tetrahedra) times for {n_views} views")
     check(tet["blend_fwd"] == 0 and tsdf["integrate_fwd"] == 0,
           f"routes crossed: {tet['blend_fwd']} B1 / {tsdf['integrate_fwd']} B4")
     for route, r in routes.items():
@@ -2299,7 +2680,8 @@ def phase_evaluate(dev):
     check(tr["blend_bwd"] == EVAL_STEPS, f"blend_bwd launched {tr['blend_bwd']} times")
     check(mv_steps >= 5 and tr["sample_fwd"] == tr["sample_bwd"] == tr["warp_sample"]
           == mv_steps, f"multi-view launches {tr} for {mv_steps} steps")
-    check(rd["blend_fwd"] == n_views and not any(v for k, v in rd.items() if k != "blend_fwd"),
+    check(rd["blend_fwd"] == rd["preprocess_fwd"] == n_views and not any(
+        v for k, v in rd.items() if k not in ("blend_fwd", "preprocess_fwd")),
           f"render launches {rd} for {n_views} views")
     check(frames == {"train": dict.fromkeys(("renders", "gt", "depth"), EVAL_TRAIN),
                      "test": dict.fromkeys(("renders", "gt", "depth"), EVAL_TEST),
@@ -2789,7 +3171,8 @@ def phase_diagnostics(dev, scene_dir):
     add_counts(launches, diag_counts)
     with open(os.path.join(diag_dir, "profile", "trace_it196.json")) as f:
         events = json.load(f)["traceEvents"]
-    spans = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+    # the step's own span: an op-scope profiler range (utils/spans.py)
+    spans = sorted(e["name"] for e in events if e.get("cat") == "cpu_op"
                    and e["name"].startswith("train_step"))
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     b1_events = sum("blend_fwd_kernel" in k for k in kernels)
@@ -3797,7 +4180,7 @@ def phase_bench(dev, timing_ref, width=1920, height=1080, n=100_000):
                          "backend": [row["backend"] for row in rows],
                          "launches": r["diag"]["launches"], "wall_s": r["wall_s"]}
     for name in ("blend_fwd", "blend_bwd", "sample_fwd", "sample_bwd", "warp_sample",
-                 "warp_sample_blocks"):
+                 "warp_sample_blocks", "preprocess_fwd", "preprocess_bwd"):
         check(launches.get(name, 0) > 0, f"{name} never launched by the benchmark entries")
     emit({"phase": "bench", "bench": bench_out, "reg": reg_out, "scaling": scaling,
           "launches": launches})
@@ -3882,7 +4265,8 @@ def phase_profile(dev, timing_ref):
           f"scaling_model's n = 1 row {model['rows'][0]} against the full step {full}")
     missing = [k for k in TRACE_KERNELS if not any(k in nm for nm in trace["names"])]
     check(not missing, f"trace_reg's kernels lack {missing}")
-    for name in ("blend_fwd", "blend_bwd", "sample_fwd", "sample_bwd", "warp_sample"):
+    for name in ("blend_fwd", "blend_bwd", "sample_fwd", "sample_bwd", "warp_sample",
+                 "preprocess_fwd", "preprocess_bwd"):
         check(launches[name] > 0, f"{name} never launched by the profile phase")
     keep = ("devices", "pred_step_ms", "pred_efficiency", "collective_ms", "share_max_balanced",
             "partition")
@@ -3952,6 +4336,8 @@ def main():
         bwd_err[rd], bwd_twin = phase_parity_bwd(1920, 1080, 100_000, dev, rd)
         if rd:
             bwd_twin_ms = bwd_twin
+    phase_sum_orders(dev)
+    pre = {c: phase_parity_preprocess(c, dev) for c in ("tnt_truck", "m360_bicycle")}
     phase_parity_sample(640, 360, 20_000, dev)
     scene = mv_scene(1920, 1080, 100_000, dev)
     sample_err, qr, rows, cot = phase_parity_sample(1920, 1080, 100_000, dev, scene)
@@ -3995,8 +4381,8 @@ def main():
     bench_launches = phase_bench(dev, bench_ref)
     profile_launches = phase_profile(dev, bench_ref)
 
-    def by_path(name, render=0):
-        return {"render": render, "train": train_launches[name],
+    def by_path(name):
+        return {"render": serve_launches.get(name, 0), "train": train_launches[name],
                 "train_compact": compact_launches[name], "mesh": mesh_launches[name],
                 "evaluate": eval_launches[name], "viewer": viewer_launches[name],
                 "diagnostics": diag_launches[name], "multi_gpu": mgpu_launches[name],
@@ -4022,7 +4408,7 @@ def main():
         {"name": "blend_fwd", "route": "cuda", "source": "gsjax_torch/csrc/blend_fwd.cu",
          "replaces": "gsjax/ops/raster/render_pallas.py:644",
          "launches": train_launches["blend_fwd"],
-         "launches_by_path": by_path("blend_fwd", serve_launches),
+         "launches_by_path": by_path("blend_fwd"),
          "max_abs_err": max(full_err["color_max_abs_err"], full_err["alpha_max_abs_err"]),
          "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": bound["bound_ms"],
          "bound_by": bound["bound_by"], "library_ms": None, "band_ms": band_ms("b1")},
@@ -4060,7 +4446,18 @@ def main():
          "plain_ms": blocks_err["twin_ms"],
          "bound_ms": mv_bound["warp_sample_blocks"]["bound_ms"],
          "bound_by": mv_bound["warp_sample_blocks"]["bound_by"],
-         "library_ms": mv_ms["grid_sample_blocks_ms"]}]})
+         "library_ms": mv_ms["grid_sample_blocks_ms"]},
+        # the preprocess pair, timed by its parity phase at each configuration
+        *({"name": f"preprocess_{side}", "route": "cuda",
+           "source": f"gsjax_torch/csrc/preprocess_{side}.cu",
+           "replaces": "none: gsjax's preprocess is an XLA stage",
+           "launches": train_launches[f"preprocess_{side}"],
+           "launches_by_path": by_path(f"preprocess_{side}"),
+           "ms": {c: p["ms"][f"kernel_{side}"] for c, p in pre.items()},
+           "plain_ms": {c: p["ms"]["twin_fwd" if side == "fwd" else "twin_fwd_bwd"]
+                        for c, p in pre.items()},
+           "bound_ms": {c: p["bound"][f"{side}_ms"] for c, p in pre.items()},
+           "bound_by": "bytes", "library_ms": None} for side in ("fwd", "bwd"))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

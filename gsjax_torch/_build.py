@@ -31,6 +31,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 
+# the preprocess kernels' camera: world_view, full_proj, campos; fx, fy, the
+# u / v clamps, near plane, kernel size, scale modifier; width, height,
+# tile, tiles_x, tiles_y
+_CAMERA = (_P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I)
+
 # kernel name -> (source under the package, C symbol, argtypes); kernels of
 # one source share its library
 KERNELS = {
@@ -78,6 +83,25 @@ KERNELS = {
         _P, _P, _P,                    # d_feats, d_pts, counters
         _I, _I, _I,                    # n_blocks, q, max_per_tile
         _F, _F,                        # alpha_clamp, alpha_min
+        _P,                            # cudaStream_t
+    ]),
+    "preprocess_fwd": ("csrc/preprocess_fwd.cu", "gsjax_preprocess_fwd", [
+        *[_P] * 9,                     # means, scales, rotations, opacities, shs,
+                                       # sg_axis, sg_sharpness, sg_color, alive
+        *[_P] * 12,                    # the Preprocessed fields, in order
+        _I, _I, _I, _I, _I,            # n, bands, lobes, sh_degree, sg_degree
+        *_CAMERA,
+        _P,                            # cudaStream_t
+    ]),
+    "preprocess_bwd": ("csrc/preprocess_bwd.cu", "gsjax_preprocess_bwd", [
+        *[_P] * 9,                     # the inputs and alive, as preprocess_fwd
+        *[_P, _L, _L] * 7,             # each cotangent and its row / column
+                                       # strides: mean2d, depth, conic, opacity,
+                                       # color, ray_plane, normal
+        *[_P] * 9,                     # the inputs' gradients, the rotation's
+                                       # as two parts (through q and |rot|)
+        _I, _I, _I, _I, _I,            # n, bands, lobes, sh_degree, sg_degree
+        *_CAMERA,
         _P,                            # cudaStream_t
     ]),
     "warp_sample": ("csrc/warp_sample.cu", "gsjax_warp_sample", [

@@ -6,8 +6,9 @@ channels-last images. The blend runs through the autograd Function
 `render_cuda.Blend` with `blend_fwd` / `blend_bwd` (the hand-written Hopper
 kernels B1 / B2 for CUDA tensors, their plain twins for CPU tensors) or,
 with `cfg.backend == "torch"`, with the twins on any device. `render` is
-differentiable in its float inputs through torch autograd (preprocess, the
-pair gather) and B2 (the blend); `mean2d_offset` is a zero gradient tap on
+differentiable in its float inputs through preprocess (its kernel pair's VJP
+on the card, torch autograd through its twin on the CPU), torch autograd
+(the pair gather) and B2 (the blend); `mean2d_offset` is a zero gradient tap on
 the projected centres for the densification statistics
 (gsjax/ops/raster/api.py:107-108).
 """

@@ -2,7 +2,8 @@
 
 Port of `gsjax/train/step.py` (the hot loop of `train.py:89-263`, loss
 assembly at :169-191). The gradient is torch autograd through the losses,
-the blend (`render_cuda.Blend`: B2 on the card) and preprocess. Adam and
+the blend (`render_cuda.Blend`: B2 on the card) and preprocess
+(`preprocess.Preprocess`: its VJP kernel on the card). Adam and
 the densification statistics update the model in place.
 
 Once regularisation is on and the caller gives a neighbour view, the PGSR

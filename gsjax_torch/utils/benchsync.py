@@ -170,11 +170,12 @@ def sync(device: torch.device):
 
 def _wrappers():
     from gsjax_torch.ops import sample_cuda, warp_sample
-    from gsjax_torch.ops.raster import render_cuda
+    from gsjax_torch.ops.raster import preprocess, render_cuda
 
     return (render_cuda.blend_fwd, render_cuda.blend_bwd, sample_cuda.sample_fwd,
             sample_cuda.integrate_fwd, sample_cuda.sample_bwd, warp_sample.warp_sample,
-            warp_sample.warp_sample_blocks)
+            warp_sample.warp_sample_blocks, preprocess.preprocess_fwd,
+            preprocess.preprocess_bwd)
 
 
 def reset_launches():

@@ -222,7 +222,8 @@ def test_entry_prints_gsjax_line_on_cpu(runs, case, metric, unit):
     diag = benchsync.read_diagnostics(se)
     assert diag["device"] == "cpu" and diag["nvidia_smi"] is None
     assert set(diag["launches"]) == {"blend_fwd", "blend_bwd", "sample_fwd", "integrate_fwd",
-                                     "sample_bwd", "warp_sample", "warp_sample_blocks"}
+                                     "sample_bwd", "warp_sample", "warp_sample_blocks",
+                                     "preprocess_fwd", "preprocess_bwd"}
     assert not any(diag["launches"].values()), "no kernel launches on the CPU"
     warm = [ln for ln in se.splitlines() if ln.startswith("warmup ")]
     assert len(warm) == 1
