@@ -15,11 +15,17 @@ reference's change, which follows the gradients' direction (Adam's first
 update is about lr * sign(g), so the norm alone misses a gradient of the
 wrong sign). A leaf whose reference gradient (from Adam's first moment after
 one step) is under a thousandth of the median leaf's moves under Adam by
-round-off alone and is left out. The first gradient's norms are not
-compared: the geometric leaves' run through the median depth's implicit
-gradient, whose denominator Newton (the kernels) and bisection (the twins)
-evaluate at roots that differ where T(t) is flat, and swing from seed to
-seed (PERF.md section 2).
+round-off alone and is left out. Within the leaves kept, both change checks
+leave out every element whose reference gradient in the first checked step
+is under a round-off floor of its row, `ROUNDOFF_FLOOR` of the largest |g|
+among the same gaussian's elements of that leaf (`above_floor`): Adam's
+first update moves such an element by a whole learning rate of its
+round-off's sign, or not at all where it is exactly 0, so a sum taken in
+another order flips it. The first gradient's norms are not compared: the
+geometric leaves' run through the median depth's implicit gradient, whose
+denominator Newton (the kernels) and bisection (the twins) evaluate at
+roots that differ where T(t) is flat, and swing from seed to seed (PERF.md
+section 2).
 """
 
 from __future__ import annotations
@@ -32,6 +38,14 @@ TOL_COLOR = 3e-5
 TOL_NORMAL = 2e-4
 MD_ATOL, MD_RTOL = 2e-3, 1e-3
 NOUGHT_LEAF = 1e-3
+# An element whose first reference |g| is under this share of the largest
+# |g| of its row (the gaussian's elements of the leaf) is round-off: the
+# ground disk's quaternions (w, 0, 0, z) with two equal scales have a w and z
+# gradient of 1e-12 to 1e-6 of their row's on the card, float32 round-off of
+# sums of the row's terms (PERF.md section 6). The floor sits ten
+# times above that band; at most 0.05% of any other leaf's elements with a
+# gradient lie under it.
+ROUNDOFF_FLOOR = 1e-5
 
 
 PLANES = ("color_far_share", "alpha_far_share", "normal_far_share", "depth_far_share")
@@ -72,6 +86,41 @@ def rel_gap(a: float, b: float) -> float:
 def leaf_norms(tensors: dict) -> dict:
     return {k: float(torch.linalg.norm(t.double())) for k, t in tensors.items()
             if t.numel()}
+
+
+def above_floor(grad_abs: dict, floor: float = ROUNDOFF_FLOOR) -> dict:
+    """Per leaf, the elements whose first-step reference gradient
+    (`grad_abs`: each leaf's |g|, its first axis the gaussians) reaches
+    `floor` of the largest of its row. An element under it moves in that
+    step by a whole learning rate of its round-off's sign, or not at all
+    where it is exactly 0, and a later step only adds to that; an element
+    above it moves by its gradient's sign, and Adam's moments carry that
+    gradient into every later step. A row whose gradient is 0 throughout
+    (a gaussian no checked view's first step reached) keeps its elements:
+    0 on both sides, they move by the later steps' gradients alone."""
+    out = {}
+    for k, a in grad_abs.items():
+        top = a.reshape(a.shape[0], -1).amax(1).reshape((-1,) + (1,) * (a.dim() - 1))
+        out[k] = a >= floor * top
+    return out
+
+
+def kept(delta: dict, keep: dict) -> dict:
+    """Each leaf's change at the elements `keep` marks, flattened, on the
+    mask's device; a leaf with no mask, or of another shape than its mask,
+    as it is (a shape that differs from the reference's then reads inf in
+    `dir_gaps`)."""
+    return {k: d.to(keep[k].device)[keep[k]] if k in keep and d.shape == keep[k].shape
+            else d for k, d in delta.items()}
+
+
+def change_gaps(prog_delta: dict, ref_delta: dict, keep: dict,
+                ref_grad: dict) -> tuple[float, float]:
+    """(`change_norm_gap`, `change_dir_gap`): the worst leaf's gap of the
+    change's norms and of the change itself over the reference's, each
+    over the elements `keep` marks (`above_floor`)."""
+    p, r = kept(prog_delta, keep), kept(ref_delta, keep)
+    return leaf_gap(leaf_norms(p), leaf_norms(r), ref_grad), dir_gap(p, r, ref_grad)
 
 
 def moving_leaves(ref: dict, ref_grad: dict) -> list:

@@ -13,19 +13,26 @@ against (PERF.md gives the readings). The benchmark's own runs use none of it.
   second tile, a frame's other half left out), `b2_scaled` (B2's gradient of
   the pair payload doubled), `grad_sign` (the positions' gradient negated as
   Adam gets it). Each driver's `FAULTS` names those its cells can have.
+- A fault reaches ranks that a run spawns (fresh interpreters, which import
+  the port anew): while `fault(name)` is entered, `name` stands in the
+  environment variable `FAULT_ENV`, which a spawned process inherits, and a
+  rank that enters `replant()` first plants the same fault in its own
+  modules. Outside `fault`, `replant()` plants nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 CONTROL = "bfloat16"
 SIGN_LEAF = "xyz"       # the leaf whose gradient `grad_sign` negates
+FAULT_ENV = "GSBENCH_FAULT"     # the fault `fault` has planted, for spawned ranks
 
 
-@contextlib.contextmanager
-def fault(name: str):
-    """Plant fault `name` in the port for the duration."""
+def _plant(name: str) -> list:
+    """Patch the port's modules in this process with fault `name`; returns
+    the (module, attribute, original) triples to restore."""
     from gsjax_torch.model import gaussians as gm
     from gsjax_torch.ops.raster import render_cuda
     from gsjax_torch.train import losses
@@ -77,8 +84,35 @@ def fault(name: str):
         patch(render_cuda, "blend_fwd", broken)
     else:
         raise ValueError(f"unknown fault {name!r}")
+    return saved
+
+
+@contextlib.contextmanager
+def fault(name: str):
+    """Plant fault `name` in the port for the duration, in this process and
+    in every rank spawned meanwhile that enters `replant()`."""
+    saved = _plant(name)
+    before = os.environ.get(FAULT_ENV)
+    os.environ[FAULT_ENV] = name
     try:
         yield
     finally:
         for mod, attr, fn in reversed(saved):
             setattr(mod, attr, fn)
+        if before is None:
+            os.environ.pop(FAULT_ENV, None)
+        else:
+            os.environ[FAULT_ENV] = before
+
+
+@contextlib.contextmanager
+def replant():
+    """Entered first in a spawned rank: plant the fault that the spawning
+    process's `fault` had active (its name inherited in `FAULT_ENV`) in this
+    rank's own modules for the duration; plant nothing when none was."""
+    name = os.environ.get(FAULT_ENV, "")
+    if not name:
+        yield
+        return
+    with fault(name):
+        yield

@@ -5,7 +5,8 @@ configuration's options, and each captured launch's bytes and operations.
 A driver (`traffic/<kind>.py`) returns a `Run`: set-up seconds, the
 end-to-end values, what was attempted and failed, the device's peak memory,
 the compared numbers, notes, and, with `trace`, the reduced trace and the
-counts the per-layer readers take.
+counts the per-layer readers take; a driver that spawns ranks also the
+forbidden modules they loaded (`harness.py` states how ranks are gathered).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ class Run:
     notes: dict
     trace: dict | None = None
     counts: dict | None = None
+    # the JAX and JAX-package modules any spawned rank loaded (harness.py)
+    rank_modules: list = dataclasses.field(default_factory=list)
 
 
 def sync(dev):

@@ -7,6 +7,21 @@ per-layer metric is read by `metrics/<name>.py`, a module with
 `read(ctx) -> float | None`, and lists the cells that report it. A cell, a
 configuration, a traffic mix, a kind of traffic or a metric is added as new
 files and entries; nothing here names one.
+
+A kind module (`traffic/__init__.py` lists what it has) returns a
+`drivers.Run`. A kind that runs its cell on several ranks (processes it
+spawns, one a card or several sharing one) gathers them into that one
+record:
+- `memory_peak_bytes` is the fullest device's peak, the largest rank's;
+- `rank_modules` lists the JAX and JAX-package modules that any rank loaded,
+  each rank calling `forbidden_modules()` itself once its window has
+  closed; `run.py` refuses the result when that list, or its own process's,
+  is not empty (one-process kinds leave it empty);
+- the trace and counts handed to the per-layer readers are one rank's: the
+  rank with the most busy device time, the one the step waits for, whose
+  `busy_s` and `window_s` the result line carries;
+- a planted fault reaches the ranks through `control.replant()`, which each
+  rank enters first.
 """
 
 from __future__ import annotations
@@ -125,9 +140,10 @@ def result_line(run, entry: dict, bench: dict, trace: bool,
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t_start: float,
-             scale: float = 1.0) -> tuple[dict, list[str]]:
-    """Run one cell on `device` and return its result line and stderr lines
-    (no look for a card here: `run.py` makes it)."""
+             scale: float = 1.0) -> tuple[dict, list[str], list[str]]:
+    """Run one cell on `device` and return its result line, its stderr lines
+    and the forbidden modules its ranks loaded (`Run.rank_modules`; no look
+    for a card here: `run.py` makes it)."""
     import torch
 
     bench = benchmark()
@@ -136,4 +152,5 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t_start:
                                                 seconds, trace, device, t_start, scale)
     dev = torch.device(device)
     dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    return result_line(run, entry, bench, trace, dev_name)
+    out, err = result_line(run, entry, bench, trace, dev_name)
+    return out, err, sorted(run.rank_modules)

@@ -4,8 +4,9 @@
 
 Exits non-zero, printing no result, without CUDA or with fewer cards than the
 cell asks for, when the run is not whole, or when JAX or the JAX package was
-loaded. The last stdout line is the result's JSON object; the numbers
-compared, each beside its limit, are the last lines on stderr.
+loaded, in this process or in any rank the run spawned. The last stdout
+line is the result's JSON object; the numbers compared, each beside its
+limit, are the last lines on stderr.
 """
 
 from __future__ import annotations
@@ -60,11 +61,12 @@ def main(argv=None) -> int:
         print(f"gsbench: the cell needs {chips} CUDA card(s); this machine has "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
-    out, err = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
-                                "cuda", t_start)
+    out, err, in_ranks = harness.run_cell(args.workload, args.seed, args.seconds,
+                                          bool(args.trace), "cuda", t_start)
     found = harness.forbidden_modules()
-    if found:
-        print(f"gsbench: the run loaded {found}; no result", file=sys.stderr)
+    if found or in_ranks:
+        print(f"gsbench: the run loaded {found} in this process and {in_ranks} in its "
+              f"ranks; no result", file=sys.stderr)
         return 3
     sys.stderr.write("\n".join(err) + "\n")
     sys.stderr.flush()

@@ -73,3 +73,65 @@ def test_change_direction_gap():
     norms = lambda d: check.leaf_norms(d)
     assert check.leaf_gap(norms(flipped), norms(ref), grad) == 0.0
     assert check.dir_gap({"b": ref["b"]}, ref, grad) == float("inf")   # a leaf missing
+
+
+def _adam_change(g1, g2, lr=1.0, b1=0.9, b2=0.999, eps=1e-15):
+    """The change of two fresh Adam steps on gradients g1 then g2 (the
+    port's and the reference's `adam_update`)."""
+    import torch
+
+    mu, nu, p = torch.zeros_like(g1), torch.zeros_like(g1), torch.zeros_like(g1)
+    for t, g in enumerate((g1, g2), 1):
+        mu = b1 * mu + (1 - b1) * g
+        nu = b2 * nu + (1 - b2) * g * g
+        p = p - lr * (mu / (1 - b1 ** t)) / (torch.sqrt(nu / (1 - b2 ** t)) + eps)
+    return p
+
+
+def test_roundoff_floor():
+    """An element whose first reference gradient is round-off against its
+    row's no longer counts where its step differs, zero on one side only or
+    of the other sign, even where a later step's gradient is real; a doubled
+    gradient above the floor still counts, and so does a row that is small
+    throughout."""
+    import torch
+
+    from gsbench import check
+
+    # rotation rows (w, x, y, z): the first two gaussians' w and z round-off
+    g1 = {"rotation": torch.tensor([[3e-9, 1.0, -0.5, -2e-9], [1e-9, -0.3, 0.2, 4e-10],
+                                    [1e-6, -2e-6, 3e-6, 1e-6]]),
+          "xyz": torch.tensor([[0.2, -0.7, 0.4]])}
+    g2 = {"rotation": torch.tensor([[-1e-9, -0.5, -0.4, 0.6], [2e-9, 0.1, 0.1, 1e-9],
+                                    [1e-6, 1e-6, -1e-6, 1e-6]]),
+          "xyz": torch.tensor([[0.1, -0.6, 0.5]])}
+    ref = {k: _adam_change(g1[k], g2[k]) for k in g1}
+    first = {k: g.abs() for k, g in g1.items()}
+    grad = check.leaf_norms(g1)
+    keep = check.above_floor(first)
+    assert keep["rotation"].tolist() == [[False, True, True, False], [False, True, True, False],
+                                         [True, True, True, True]]
+    assert keep["xyz"].all()
+    assert check.change_gaps(ref, ref, keep, grad) == (0.0, 0.0)
+    every = {k: torch.ones_like(x, dtype=torch.bool) for k, x in keep.items()}
+    for w, z in ((0.0, -2e-9),            # exactly 0 on one side only
+                 (3e-9, 2e-9)):           # round-off of the other sign, its next step real
+        g = {"rotation": g1["rotation"].clone(), "xyz": g1["xyz"]}
+        g["rotation"][0, 0], g["rotation"][0, 3] = w, z
+        prog = {k: _adam_change(g[k], g2[k]) for k in g1}
+        norm_all, dir_all = check.change_gaps(prog, ref, every, grad)
+        assert norm_all > 0.01 and dir_all > 0.3
+        assert check.change_gaps(prog, ref, keep, grad) == (0.0, 0.0)
+    # the second step's gradient doubled on an element above the floor
+    doubled = {"rotation": g2["rotation"].clone(), "xyz": g2["xyz"]}
+    doubled["rotation"][0, 1] *= 2
+    prog = {k: _adam_change(g1[k], doubled[k]) for k in g1}
+    norm_gap, dir_gap = check.change_gaps(prog, ref, keep, grad)
+    assert norm_gap > 1e-2 and dir_gap > 1e-2
+    # a row small throughout is no round-off: its sign flipped counts
+    flipped = {"rotation": g1["rotation"].clone(), "xyz": g1["xyz"]}
+    flipped["rotation"][2, 0] *= -1
+    prog = {k: _adam_change(flipped[k], g2[k]) for k in g1}
+    assert check.change_gaps(prog, ref, keep, grad)[1] > 1e-2
+    # a row whose first gradient is 0 throughout keeps its elements
+    assert check.above_floor({"a": torch.zeros(2, 3)})["a"].all()

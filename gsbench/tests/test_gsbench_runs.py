@@ -17,7 +17,9 @@ CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
 
 
 def _run(name, seed=2**31 + 9, trace=False):
-    return harness.run_cell(name, seed, 0.5, trace, "cpu", time.time(), SCALE)
+    out, err, in_ranks = harness.run_cell(name, seed, 0.5, trace, "cpu", time.time(), SCALE)
+    assert in_ranks == []          # one process: no rank of its own
+    return out, err
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -59,6 +61,29 @@ def test_no_card_no_result():
                                                                              "run.py"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
     assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("in_ranks", [[], ["jax"]])
+def test_rank_modules_refuse_the_result(in_ranks, monkeypatch, capsys):
+    """`run.py` prints its result only where no rank loaded JAX or the JAX
+    package (the look for a card and the run replaced)."""
+    import torch
+
+    from gsbench import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(harness, "run_cell", lambda *a, **k: (
+        {"correct": True, "checks": {}}, ["check failed_units: 0 (limit 0)"], in_ranks))
+    for var in ("TRITON_CACHE_DIR", "TORCH_EXTENSIONS_DIR"):
+        monkeypatch.setenv(var, "unused")
+    rc = run.main(["--workload", "m360.render", "--seed", "1", "--seconds", "1",
+                   "--trace", "0"])
+    out = capsys.readouterr()
+    if in_ranks:
+        assert rc != 0 and out.out == "" and "['jax'] in its ranks" in out.err
+    else:
+        assert rc == 0 and json.loads(out.out.splitlines()[-1])["correct"] is True
 
 
 def test_forbidden_names_compared_whole(monkeypatch):

@@ -6,8 +6,9 @@ trainer; the reference follows them once the window has closed.
 
 Compared: each step's loss and multi-view terms and its view draws, the
 first step's B1 planes, and by the worst leaf both the norm of the
-parameters' change over the checked steps and the change itself
-(`check.py`).
+parameters' change over the checked steps and the change itself, each over
+the elements whose first reference gradient is above the round-off floor
+of its row (`check.py`).
 """
 
 from __future__ import annotations
@@ -106,10 +107,10 @@ def _images(planes) -> dict:
             "median_depth": img["median_depth"]}
 
 
-def _changes(params, p0: dict) -> tuple[dict, dict]:
-    """Each leaf's change since `p0`: its norm, and the change on the host."""
-    delta = {k: (getattr(params, k).detach() - p0[k]) for k in p0}
-    return check.leaf_norms(delta), {k: d.cpu() for k, d in delta.items()}
+def _changes(params, p0: dict) -> dict:
+    """Each leaf's change since `p0`, on the host (kept there while the
+    program's state is freed)."""
+    return {k: (getattr(params, k).detach() - p0[k]).cpu() for k in p0}
 
 
 def program(cfg: dict, traffic: dict, seed: int, dev, scale: float, model_dir: str,
@@ -144,7 +145,7 @@ def program(cfg: dict, traffic: dict, seed: int, dev, scale: float, model_dir: s
             prog[k].append(m[key])
         del rec
     p0 = initial_leaves(cfg, scene, seed, dev)
-    prog["change"], prog["delta"] = _changes(trainer.params, p0)
+    prog["delta"] = _changes(trainer.params, p0)
     del p0
     return scene, trainer, prog
 
@@ -243,8 +244,9 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, device
 
 def reference(cfg, traffic, seed, dev, scale, round_to=None) -> dict:
     """The reference's first `checked_steps` steps from the same inputs:
-    each step's metrics, the first step's gradient norms and B1 planes, and
-    the parameters' change (norms, and the change on the host)."""
+    each step's metrics, the first step's gradient (its norms, and every
+    element's |g|, `grad_abs`, which `check.above_floor` reads) and B1
+    planes, and the parameters' change, all on the reference's device."""
     scene = scenes.make_scene(cfg, seed, dev, scale)
     p0 = {k: v.clone() for k, v in scene.params.items()}
     ref = {}
@@ -252,11 +254,13 @@ def reference(cfg, traffic, seed, dev, scale, round_to=None) -> dict:
 
     def on_step(i, params, adam, m):
         if i == 0:
-            ref["grad"] = check.leaf_norms({k: v / (1 - ADAM_B1) for k, v in adam.mu.items()})
+            grad = {k: v / (1 - ADAM_B1) for k, v in adam.mu.items()}
+            ref["grad"] = check.leaf_norms(grad)
+            ref["grad_abs"] = {k: g.abs() for k, g in grad.items()}
             ref["planes"] = m.pop("images")
         m.pop("images", None)
         if i == n - 1:
-            ref["change"], ref["delta"] = _changes(params, p0)
+            ref["delta"] = {k: getattr(params, k).detach() - p0[k] for k in p0}
 
     ref["steps"] = ref_loop.train_steps(scene, cfg, traffic, seed, n, dev, round_to=round_to,
                                         on_step=on_step)
@@ -274,18 +278,43 @@ def compare(prog: dict, ref: dict, detail: dict | None = None) -> dict:
         "loss_gap": max(check.rel_gap(a, m["loss"]) for a, m in zip(prog["loss"], steps)),
         "ncc_gap": max(check.rel_gap(a, m["ncc_loss"]) for a, m in zip(prog["ncc"], steps)),
         "geo_gap": max(check.rel_gap(a, m["geo_loss"]) for a, m in zip(prog["geo"], steps)),
-        "change_norm_gap": check.leaf_gap(prog["change"], ref["change"], ref["grad"]),
-        "change_dir_gap": check.dir_gap(prog["delta"], ref["delta"], ref["grad"]),
     }
+    keep = check.above_floor(ref["grad_abs"])
+    numbers["change_norm_gap"], numbers["change_dir_gap"] = check.change_gaps(
+        prog["delta"], ref["delta"], keep, ref["grad"])
     numbers.update(check.plane_numbers(prog["planes"], ref["planes"]))
     if detail is not None:
+        p, r = check.kept(prog["delta"], keep), check.kept(ref["delta"], keep)
         detail.update(grad=check.leaf_gaps(prog["grad"], ref["grad"], ref["grad"]),
-                      change=check.leaf_gaps(prog["change"], ref["change"], ref["grad"]),
-                      direction=check.dir_gaps(prog["delta"], ref["delta"], ref["grad"]),
-                      ref_grad=ref["grad"], ref_change=ref["change"],
+                      change=check.leaf_gaps(check.leaf_norms(p), check.leaf_norms(r),
+                                             ref["grad"]),
+                      direction=check.dir_gaps(p, r, ref["grad"]),
+                      rules=_floor_rules(prog["delta"], ref),
+                      ref_grad=ref["grad"], ref_change=check.leaf_norms(r),
                       loss=[prog["loss"], [m["loss"] for m in steps]],
                       ncc=[prog["ncc"], [m["ncc_loss"] for m in steps]])
     return numbers
+
+
+def _floor_rules(prog_delta: dict, ref: dict) -> dict:
+    """For calibration: [change_norm_gap, change_dir_gap] and each leaf's
+    share of its elements with a nonzero first reference gradient that are
+    left out, under no floor (`none`), under floors of the row (`row`,
+    `check.above_floor`), and under a floor of the leaf's largest |g|
+    (`leaf`), which leaves out half the geometric leaves' elements."""
+    first = ref["grad_abs"]
+    dev = next(iter(first.values())).device
+    pd = {k: v.to(dev) for k, v in prog_delta.items()}
+    rules = {"none:0": {k: torch.ones_like(a, dtype=torch.bool) for k, a in first.items()},
+             "leaf:1e-06": {k: a >= 1e-6 * a.max() for k, a in first.items()}}
+    rules.update({f"row:{f:g}": check.above_floor(first, f) for f in (1e-6, 1e-5, 1e-4)})
+    out = {}
+    for name, keep in rules.items():
+        left = {k: float(((a > 0) & ~keep[k]).sum()) / max(float((a > 0).sum()), 1)
+                for k, a in first.items()}
+        out[name] = {"gaps": check.change_gaps(pd, ref["delta"], keep, ref["grad"]),
+                     "left_out": left}
+    return out
 
 
 def readings(cfg, traffic, seed, dev, scale: float = 1.0) -> dict:
@@ -313,7 +342,7 @@ def control(cfg, traffic, seed, dev, scale: float = 1.0, round_to: str = "bfloat
             prog["grad"] = check.leaf_norms(
                 {k: v / (1 - ADAM_B1) for k, v in adam.mu.items()})
             prog["planes"] = m["images"]
-        prog["change"], prog["delta"] = _changes(params, p0)
+        prog["delta"] = _changes(params, p0)
         for k, key in (("loss", "loss"), ("ncc", "ncc_loss"), ("geo", "geo_loss"),
                        ("view", "view"), ("near", "near")):
             prog[k].append(m[key])
